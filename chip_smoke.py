@@ -41,7 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the on-chip-measurement guide's table)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 
 # the reference's numbers for LUBM-1, seed 0 (BENCH_queries.json, table6)
 LUBM1_SIZES = {"original": 136826, "lite": 137457, "full": 189936}
