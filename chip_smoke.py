@@ -13,17 +13,30 @@ line:
   2. build    — compiles every kernel under src/repro_torch/kernels/csrc;
   3. lubm1    — ``KnowledgeBase.build`` of LUBM-1 (seed 0): store sizes and
                 Q1–Q4 answer counts in litemat and full, indexed and scan,
-                against the reference's published numbers;
+                and in rewrite mode (equal to litemat's and full's), against
+                the reference's published numbers;
   4. lubm100  — LUBM-100 (seed 0): build with per-stage seconds and peak
                 device memory; Q1–Q4 in litemat and full, indexed answers
                 equal to scan answers, Q4's INL through the merge-path
                 kernel, median of 5 warm runs per query;
-  5. kernels  — each kernel against its plain version on the card at the
+  5. lubm100_rewrite — Q1–Q4 in rewrite mode at LUBM-100 (the member-
+                compaction kernel over the raw store), answer sets equal to
+                litemat's; cold time, medians of 5 warm runs, a profile;
+  6. lubm100_live — the live store at LUBM-100: a 1% insert of a disjoint
+                university, a 0.1% delete, device compaction held bit for
+                bit against host compaction, compact(), then a small insert
+                whose fold takes the merge's resident branch; after each
+                step Q1–Q4 in all three modes equal, in term space, a
+                KnowledgeBase built from scratch on the same triples;
+  7. kernels  — each kernel against its plain version on the card at the
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
                 call's; then the ``{"kernels": [...]}`` line with the launch
-                counts of the main path (phases 3 and 4: every counter is
-                zeroed just before phase 3 and read just after phase 4).
+                counts of the main path: every counter is zeroed just
+                before each of phases 3–6 and read just after it (a
+                ``window`` line each), and the line sums the four windows.
+                The scratch builds the checks compare against run with the
+                counters set back, so only the main path's launches count.
 
 Any failed check raises, so the script exits non-zero; the last line,
 printed only when everything passed, is
@@ -31,6 +44,7 @@ printed only when everything passed, is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -75,6 +89,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _median_ms(fn, runs: int = 5) -> float:
+    """Median host time of ``runs`` calls of ``fn``, in ms."""
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()  # returns host arrays: waits for the device
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
 def peak_gib() -> float:
     import torch
 
@@ -113,6 +137,8 @@ def _counters():
         "compact_tiles": stream_compact.compact_tiles,
         "masked_interval_tiles": stream_compact.masked_interval_tiles,
         "pair_search": pair_search.pair_search,
+        "member_tiles": stream_compact.member_tiles,
+        "merge_path_resident": merge_sorted.merge_path_resident,
         "merge_path": merge_sorted.merge_path,
     }, ops.pass_counters
 
@@ -130,6 +156,43 @@ def zero_counts() -> None:
     for fn in _counters()[0].values():
         fn.launches = 0
     ops.reset_pass_counters()
+
+
+def drive(total: dict, phase, *args, need=()):
+    """Run one main-path phase in its own launch window: every counter is
+    zeroed just before it and read just after; the window is printed,
+    each counter in ``need`` must have moved in it, and it is added to
+    ``total``.  Returns the phase's result."""
+    zero_counts()
+    out = phase(*args)
+    window = read_counts()
+    emit({"window": phase.__name__, "launches": window})
+    for k in need:
+        require(window[k] > 0, f"{phase.__name__} never launched {k}")
+    for k, v in window.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Set every counter back to its value on entry when the block ends:
+    what a check runs on the side is no launch of the main path."""
+    saved = read_counts()
+    yield
+    wrappers, passes = _counters()
+    for name, fn in wrappers.items():
+        fn.launches = saved[name]
+    for k in passes:
+        passes[k] = saved[f"pass/{k}"]
+
+
+def launches_of(fn) -> dict:
+    """The launches one call makes, read inside the current window."""
+    before = read_counts()
+    fn()
+    after = read_counts()
+    return {k: after[k] - before[k] for k in after if after[k] > before[k]}
 
 
 def _all_queries(kb, expect=None):
@@ -155,10 +218,9 @@ def _all_queries(kb, expect=None):
 
 def phase_lubm1():
     import torch
-    from repro_torch.core.engine import KnowledgeBase
+    from repro_torch.core.engine import PAPER_QUERIES, KnowledgeBase
     from repro_torch.rdf.generator import generate_lubm
 
-    before = read_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     kb = KnowledgeBase.build(generate_lubm(1, seed=0))
@@ -166,12 +228,16 @@ def phase_lubm1():
     sizes = kb.sizes()
     require(sizes == LUBM1_SIZES, f"LUBM-1 sizes {sizes} != {LUBM1_SIZES}")
     counts = _all_queries(kb, LUBM1_COUNTS)
-    after = read_counts()
-    for k in ("compact_tiles", "masked_interval_tiles", "pair_search"):
-        require(after[k] > before[k], f"LUBM-1 queries never launched {k}")
+    for q, pats in PAPER_QUERIES.items():  # the paper's completeness check
+        got = kb.answers(pats, mode="rewrite")
+        require(len(got) == LUBM1_COUNTS[q],
+                f"{q}/rewrite: {len(got)} answers, reference {LUBM1_COUNTS[q]}")
+        for mode in ("litemat", "full"):
+            require(got == kb.answers(pats, mode=mode),
+                    f"{q}: rewrite answers differ from {mode}'s")
+        counts[f"{q}/rewrite"] = len(got)
     emit({"phase": "lubm1", "seed": 0, "sizes": sizes, "answers": counts,
-          "build_s": build_s, "peak_gib": peak_gib(),
-          "launches": {k: after[k] - before[k] for k in after}})
+          "build_s": build_s, "peak_gib": peak_gib()})
     return kb
 
 
@@ -202,17 +268,11 @@ def phase_lubm100():
           "build_s": build_s, "stage_s": stages, "peak_gib": build_peak,
           "sizes": sizes, "lite_stats": kb.lite_stats,
           "full_stats": kb.full_stats})
-    del raw
 
     torch.cuda.reset_peak_memory_stats()
-    before = read_counts()
     t0 = time.perf_counter()
     counts = _all_queries(kb)  # cold: index builds and first runs included
     cold_s = time.perf_counter() - t0
-    after = read_counts()
-    require(after["merge_path"] > before["merge_path"]
-            and after["pass/merge_partitioned"] > before["pass/merge_partitioned"],
-            "LUBM-100 Q4 never took the partitioned merge path")
     plans, medians = {}, {}
     for mode in ("litemat", "full"):
         for use_index in (True, False):
@@ -222,12 +282,7 @@ def phase_lubm100():
                 if use_index:
                     plans[key] = [(p["strategy"], p["store"])
                                   for p in eng.explain(pats)["patterns"]]
-                times = []
-                for _ in range(5):
-                    t = time.perf_counter()
-                    eng.run(pats)  # returns host arrays: waits for the device
-                    times.append(time.perf_counter() - t)
-                medians[key] = statistics.median(times) * 1e3
+                medians[key] = _median_ms(lambda: eng.run(pats))
     for mode in ("litemat", "full"):
         require(("inl", "pso") in plans[f"Q4/{mode}/index"],
                 f"LUBM-100 Q4/{mode} did not plan an INL probe")
@@ -235,10 +290,215 @@ def phase_lubm100():
             "LUBM-100 store must exceed INL_RESIDENT_MAX rows")
     emit({"phase": "lubm100_queries", "answers": counts, "cold_s": cold_s,
           "plans": plans, "median_ms": medians, "peak_gib": peak_gib(),
-          "launches": {k: after[k] - before[k] for k in after},
           "profile": {f"{q}/litemat/index": _profile(
               lambda pats=PAPER_QUERIES[q]: kb.query(pats)) for q in ("Q2", "Q4")}})
-    return kb
+    return kb, raw
+
+
+def phase_lubm100_rewrite(kb):
+    """Q1–Q4 in rewrite mode over the LUBM-100 raw store."""
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    answers = {}
+    for q, pats in PAPER_QUERIES.items():  # cold: raw-store scans first run
+        got = kb.answers(pats, mode="rewrite")
+        require(got == kb.answers(pats, mode="litemat"),
+                f"LUBM-100 {q}: rewrite answers differ from litemat's")
+        answers[q] = len(got)
+    cold_s = time.perf_counter() - t0
+    eng = kb.engine("rewrite")
+    plans, medians = {}, {}
+    for q, pats in PAPER_QUERIES.items():
+        plans[q] = [(p["strategy"], p["store"], p["estimated_rows"],
+                     p["observed_rows"]) for p in eng.explain(pats)["patterns"]]
+        medians[q] = _median_ms(lambda: eng.run(pats))
+    emit({"phase": "lubm100_rewrite", "answers": answers, "cold_s": cold_s,
+          "plans": plans, "median_ms": medians, "peak_gib": peak_gib(),
+          "profile": {f"{q}/rewrite": _profile(
+              lambda pats=PAPER_QUERIES[q]: eng.run(pats)) for q in ("Q1", "Q4")}})
+
+
+def _term_answers(kb, modes=("litemat", "full", "rewrite")) -> dict:
+    """Q1–Q4 answers per mode as sorted fingerprint rows (term space: ids
+    differ between two builds of the same triples, fingerprints do not).
+    Columns are put in variable-name order: a query's default projection
+    follows its plan's join order, which depends on the store's counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.utils import pair64
+
+    out = {}
+    for mode in modes:
+        for q, pats in PAPER_QUERIES.items():
+            rows, sel = kb.query(pats, mode=mode)
+            rows = np.ascontiguousarray(rows[:, np.argsort(sel)])
+            ids = torch.as_tensor(rows.reshape(-1), device=kb.device)
+            hi, lo, hit = kb.kb.table.extract_fp(ids)
+            require(bool(hit.all()), f"{q}/{mode}: an answer id is not in "
+                                     f"the dictionary")
+            fps = pair64.combine_np(hi.cpu().numpy(), lo.cpu().numpy())
+            fps = fps.reshape(rows.shape)
+            order = np.lexsort(fps.T[::-1]) if fps.size else np.arange(0)
+            out[f"{q}/{mode}"] = fps[order]
+    return out
+
+
+def _same_answers(kb, raw_cols, onto, what: str) -> dict:
+    """Hold ``kb``'s answers against a scratch build of ``raw_cols``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import KnowledgeBase
+    from repro_torch.rdf.generator import RawDataset
+
+    got = _term_answers(kb)
+    with uncounted():  # the scratch build is the check's, not the main path
+        scratch = KnowledgeBase.build(RawDataset(*raw_cols, onto=onto))
+        want = _term_answers(scratch)
+        del scratch
+        torch.cuda.empty_cache()
+    for key in want:
+        require(np.array_equal(got[key], want[key]),
+                f"{what} {key}: {got[key].shape[0]} answers, scratch build "
+                f"{want[key].shape[0]}")
+    return {k: int(v.shape[0]) for k, v in got.items()}
+
+
+def _drop_triples(cols, gone_cols):
+    """``cols`` without every copy of the triples in ``gone_cols`` — what
+    ``delete`` removes (all copies of each triple)."""
+    import numpy as np
+
+    gone = set(zip(*(c.tolist() for c in gone_cols)))
+    cand = np.flatnonzero(np.isin(cols[0], gone_cols[0]))
+    rows = zip(*(c[cand].tolist() for c in cols))
+    drop = [i for i, t in zip(cand.tolist(), rows) if t in gone]
+    keep = np.ones(cols[0].shape[0], dtype=bool)
+    keep[drop] = False
+    return tuple(c[keep] for c in cols)
+
+
+def _q4_plan(eng) -> list:
+    """Q4's plan on ``eng``: (strategy, store, estimated, observed rows)."""
+    from repro_torch.core.engine import PAPER_QUERIES
+
+    return [(p["strategy"], p["store"], p["estimated_rows"], p["observed_rows"])
+            for p in eng.explain(PAPER_QUERIES["Q4"])["patterns"]]
+
+
+def phase_lubm100_live(kb, raw):
+    """The live store at LUBM-100, with the reference bench's traffic."""
+    import numpy as np
+    import torch
+    from repro_torch.core.delta import compact_view
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.core.query import QueryEngine
+    from repro_torch.rdf.generator import RawDataset, generate_lubm
+
+    torch.cuda.reset_peak_memory_stats()
+    base = (raw.s, raw.p, raw.o)
+    chunk = raw.n_triples // 100  # 1% of a disjoint university
+    pool = generate_lubm(1, seed=7, univ_offset=1)
+    batch = tuple(c[:chunk] for c in (pool.s, pool.p, pool.o))
+    out = {"insert_rows": chunk}
+    stats0 = {m: dict(kb.dev_cache(m).stats) for m in ("litemat", "full",
+                                                       "rewrite")}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    # the overlay's own kernels: K4 (rewrite's type scan) and K3 (Q4's INL
+    # probe) launch on the delta bucket beside the base, so one query makes
+    # more launches than it made on the base alone
+    probes = {"Q1/rewrite": (lambda: kb.query(PAPER_QUERIES["Q1"],
+                                              mode="rewrite"), "member_tiles"),
+              "Q4/litemat": (lambda: kb.query(PAPER_QUERIES["Q4"]),
+                             "pair_search")}
+    on_base = {q: launches_of(fn) for q, (fn, _) in probes.items()}
+
+    # 1. insert, then serve each mode (its lazy flush) and query
+    out["insert"], out["insert_s"] = timed(
+        lambda: kb.insert(RawDataset(*batch, onto=raw.onto),
+                          auto_compact=False))
+    for mode in ("litemat", "full", "rewrite"):
+        _, out[f"flush_{mode}_s"] = timed(lambda m=mode: kb.warm_device(m))
+    out["transfer_rows_after_insert"] = {
+        m: {k: kb.dev_cache(m).stats[k] - stats0[m][k]
+            for k in ("upload_delta_rows", "upload_alive_rows",
+                      "upload_base_alive_rows", "delta_allocs")}
+        for m in stats0}
+    for m, st in out["transfer_rows_after_insert"].items():
+        require(st["upload_base_alive_rows"] == 0
+                and st["upload_delta_rows"] <= 8 * 4 * chunk,
+                f"{m}: the insert's device refresh is not O(delta): {st}")
+    out["delta_ratio_after_insert"] = kb.delta_ratio
+    on_overlay = {q: launches_of(fn) for q, (fn, _) in probes.items()}
+    out["launches_base_vs_overlay"] = {q: [on_base[q], on_overlay[q]]
+                                       for q in probes}
+    for q, (_, k) in probes.items():
+        require(on_overlay[q].get(k, 0) > on_base[q].get(k, 0),
+                f"{q} never launched {k} on the delta bucket")
+    grown = tuple(np.concatenate([b, d]) for b, d in zip(base, batch))
+    out["answers_after_insert"] = _same_answers(kb, grown, raw.onto,
+                                                "after insert")
+    out["q4_plan_after_insert"] = _q4_plan(kb.engine("litemat"))
+
+    # 2. delete 0.1% of the base, by stride
+    n_del = raw.n_triples // 1000
+    idx = np.arange(0, raw.n_triples, raw.n_triples // n_del)[:n_del]
+    out["delete"], out["delete_s"] = timed(
+        lambda: kb.delete(tuple(c[idx] for c in base), auto_compact=False))
+    require(out["delete"]["n_deleted"] >= n_del, f"delete: {out['delete']}")
+    out["delta_ratio_after_delete"] = kb.delta_ratio
+    live = _drop_triples(grown, tuple(c[idx] for c in base))
+    out["answers_after_delete"] = _same_answers(kb, live, raw.onto,
+                                                "after delete")
+    out["q4_plan_after_delete"] = _q4_plan(kb.engine("litemat"))
+
+    # 3. device compaction == host compaction, bit for bit; then compact()
+    for mode in ("rewrite", "litemat", "full"):
+        v = kb.view(mode)
+        (h_rows, h_idx), out[f"compact_host_{mode}_s"] = timed(
+            lambda v=v: compact_view(v, device=False))
+        (d_rows, d_idx), out[f"compact_device_{mode}_s"] = timed(
+            lambda v=v: compact_view(v, device=True))
+        require(torch.equal(h_rows, d_rows)
+                and np.array_equal(h_idx._h, d_idx._h),
+                f"{mode}: device compaction differs from host compaction")
+        del h_rows, h_idx, d_rows, d_idx
+    out["compact"], out["compact_s"] = timed(kb.compact)
+    out["answers_after_compact"] = _same_answers(kb, live, raw.onto,
+                                                 "after compact")
+    out["q4_plan_after_compact"] = _q4_plan(kb.engine("litemat"))
+
+    # 4. a small insert: its fold merges a delta bucket under the merge
+    # block (1,024 rows), the branch a store taking few writes folds through
+    small = tuple(c[chunk:chunk + 64] for c in (pool.s, pool.p, pool.o))
+    kb.insert(RawDataset(*small, onto=raw.onto), auto_compact=False)
+    out["small_delta_cap"] = int(kb.view("full").delta_cap)
+    out["small_compact"], out["small_compact_s"] = timed(kb.compact)
+    live = tuple(np.concatenate([c, d]) for c, d in zip(live, small))
+    out["answers_after_small_compact"] = _same_answers(
+        kb, live, raw.onto, "after the small compaction")
+
+    # Q4 on the live store: the plan the KB's engine keeps after this
+    # traffic and its cost, beside the plan a fresh engine would start from
+    kept = kb.engine("litemat")
+    out["q4_plan_kept"] = _q4_plan(kept)
+    out["q4_median_ms_kept"] = _median_ms(lambda: kept.run(PAPER_QUERIES["Q4"]))
+    out["q4_plan_fresh"] = _q4_plan(QueryEngine(
+        kb=kb.kb, spo=kb.lite_spo, mode="litemat", dtb=kb.dtb,
+        view=kb.view("litemat")))
+    out["peak_gib"] = peak_gib()
+    emit({"phase": "lubm100_live", **out})
+    return out["small_delta_cap"]
 
 
 def _profile(fn, runs: int = 5) -> dict:
@@ -266,7 +526,8 @@ def _profile(fn, runs: int = 5) -> dict:
     busy_us = sum(us for _, us in dev)
     return {"wall_ms_per_run": wall_us / runs / 1e3,
             "device_busy_share": busy_us / wall_us if busy_us else None,
-            "top_device_ms_per_run": [(k, us / runs / 1e3) for k, us in dev[:6]]}
+            "top_device_ms_per_run": [(k[:120], us / runs / 1e3)
+                                      for k, us in dev[:6]]}
 
 
 def _max_abs_err(outs_a, outs_b) -> int:
@@ -321,17 +582,34 @@ def _inl_probes(eng, pats):
     return qhi, vals.repeat(len(pids))
 
 
-def phase_kernels(kb1, kb100, launches):
+def _rewrite_sets(eng, pats):
+    """(tid, mem, dom, rng, has_dom, has_rng) of a rewrite type pattern."""
+    sig, dyn, _ = eng._lower(*eng._prepare(pats)[0])
+    return (dyn["tid"], dyn["o"], dyn["dom"], dyn["rng"], sig.extra_caps[2],
+            sig.extra_caps[3])
+
+
+def _id_set(ids, cap, dev):
+    import torch
+
+    out = torch.full((cap,), 2**31 - 1, dtype=torch.int32, device=dev)
+    ids = torch.unique(ids.to(torch.int32))
+    out[: ids.shape[0]] = ids
+    return out
+
+
+def phase_kernels(kb1, kb100, launches, small_cap):
     import torch
     from repro_torch.core.engine import PAPER_QUERIES
     from repro_torch.core.index import key_cols
+    from repro_torch.core.query import QueryEngine
     from repro_torch.kernels import merge_sorted as ms
     from repro_torch.kernels import ops
     from repro_torch.kernels import pair_search as ps
     from repro_torch.kernels import stream_compact as sc
     from repro_torch.utils.pair64 import pair_key
 
-    dev = torch.device("cuda")
+    dev = kb100.device
     gen = torch.Generator(device=dev).manual_seed(0)
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
@@ -339,8 +617,12 @@ def phase_kernels(kb1, kb100, launches):
     edge_checks = 0
 
     # -- K1 at its largest main-path call: Q2's DISTINCT keep mask at
-    # LUBM-100 (join_cap slots, 512-row tiles, the answers' rows set) --
-    eng = kb100.engine("litemat")
+    # LUBM-100 (join_cap slots, 512-row tiles, the answers' rows set).  A
+    # fresh engine plans as the first run of a query does: the KB's own
+    # engine keeps the observations of the live phase, after which it
+    # answers Q4 by a merge join (phase 6 prints the plans) --
+    eng = QueryEngine(kb=kb100.kb, spo=kb100.lite_spo, mode="litemat",
+                      dtb=kb100.dtb, view=kb100.view("litemat"))
     ex = eng.explain(PAPER_QUERIES["Q2"])
     cap, n_ans = ex["join_cap"], ex["n_result_rows"]
     keep = torch.arange(cap, device=dev) < n_ans
@@ -455,25 +737,87 @@ def phase_kernels(kb1, kb100, launches):
                [ms.merge_path_plain(b_hi, b_lo, th, tl)])
         edge_checks += 2
 
-    # -- the resident branch (a run shorter than block, the TPU's K5) --
-    r_hi, r_lo = a_hi[:1000].contiguous(), a_lo[:1000].contiguous()
-    err5 = _exact("merge_path resident", [ms.merge_path(r_hi, r_lo, b_hi, b_lo)],
-                  [ms.merge_path_plain(r_hi, r_lo, b_hi, b_lo)])
-    rkey = pair_key(r_hi, r_lo)
-    resident = _row(
-        "merge_path (resident branch)", src + "merge_path.cu",
-        ref + "merge_sorted.py:111", 0, err5,
-        lambda: ms.merge_path(r_hi, r_lo, b_hi, b_lo),
-        lambda: ms.merge_path_plain(r_hi, r_lo, b_hi, b_lo),
-        lambda: torch.sort(torch.cat([rkey, bkey]), stable=True).indices,
-        12 * (1000 + mb))
+    # -- K5, the resident branch, as the small fold runs it: the compacted
+    # full store's POS keys against a delta bucket under the block --
+    pos = kb100.engine("full").view.dev("pos").base
+    f_hi, f_lo = pos[:, 1], pos[:, 2]
+    pick = torch.randint(0, pos.shape[0], (small_cap,), generator=gen,
+                         device=dev).sort().values
+    r_hi, r_lo = f_hi[pick].contiguous(), f_lo[pick].contiguous()  # ties
+    err5 = _exact("merge_path_resident",
+                  [ms.merge_path_resident(f_hi, f_lo, r_hi, r_lo)],
+                  [ms.merge_path_plain(f_hi, f_lo, r_hi, r_lo)])
+    fkey, rkey = pair_key(f_hi, f_lo), pair_key(r_hi, r_lo)
+    rows.append(_row(
+        "merge_path_resident", src + "merge_path.cu",
+        ref + "merge_sorted.py:111", launches["merge_path_resident"], err5,
+        lambda: ms.merge_path_resident(f_hi, f_lo, r_hi, r_lo),
+        lambda: ms.merge_path_plain(f_hi, f_lo, r_hi, r_lo),
+        lambda: torch.sort(torch.cat([fkey, rkey]), stable=True).indices,
+        12 * (pos.shape[0] + small_cap)))
+
+    # -- K4 at rewrite's real shapes: the raw store, Q4's Chair (domain
+    # branch only: one stream) and Q1's Professor (domain and range: two) --
+    raw_spo = kb100.kb.spo
+    nr = raw_spo.shape[0]
+    rblock = ops.auto_block(nr)
+    nbr = sc.n_tiles(nr, rblock)
+    ralive = torch.ones(nr, dtype=torch.bool, device=dev)
+    reng = kb100.engine("rewrite")
+    cols = (raw_spo[:, 0], raw_spo[:, 1], raw_spo[:, 2])
+    member = {}  # streams -> row
+    for streams, pats in ((1, PAPER_QUERIES["Q4"][:1]),  # Chair: domain only
+                          (2, PAPER_QUERIES["Q1"])):  # Professor: both
+        tid, mem, dom, rng, has_dom, has_rng = _rewrite_sets(reng, pats)
+        require(has_rng == (streams == 2),
+                f"{pats[0].o}: unexpected range branch {has_rng}")
+        args = (*cols, ralive, tid, mem, dom, rng, has_dom, has_rng, rblock)
+        err = _exact("member_tiles", [t for st in sc.member_tiles(*args)
+                                      for t in st],
+                     [t for st in sc.member_tiles_plain(*args) for t in st])
+        set_bytes = 4 * (mem.numel() + (dom.numel() if has_dom else 0)
+                         + (rng.numel() if has_rng else 0))
+        member[streams] = _row(
+            "member_tiles", src + "stream_compact.cu",
+            ref + "stream_compact.py:284", launches["member_tiles"], err,
+            lambda a=args: sc.member_tiles(*a),
+            lambda a=args: sc.member_tiles_plain(*a), None,
+            13 * nr + set_bytes + streams * (4 * nbr * rblock + 4 * nbr))
+    rows.append(member[2])
+    # K4 edges: empty store, empty and all-padding sets, INVALID rows, sets
+    # larger than the staged part (2,048 ids), 512- and 4096-row tiles
+    big = _id_set(torch.randint(0, 2**24, (6000,), generator=gen, device=dev),
+                  8192, dev)
+    big_p = _id_set(torch.arange(0, 2**20, 3, device=dev), 2**19, dev)
+    pad8 = _id_set(torch.zeros(0, device=dev), 8, dev)
+    edge_sets = ((mem, dom, rng), (pad8, pad8, pad8), (big, big_p, big_p),
+                 (mem, pad8, big_p))
+    m = 5 * 4096 + 77
+    espo = raw_spo[:m].clone()
+    espo[::97] = 2**31 - 1  # INVALID rows
+    espo[5::89, 2] = 2**31 - 1  # INVALID objects
+    ealive = torch.rand(m, generator=gen, device=dev) < 0.9
+    for n_e, blk in ((0, 512), (1, 512), (3 * 512 + 17, 512), (m, 4096)):
+        ec = (espo[:n_e, 0], espo[:n_e, 1], espo[:n_e, 2])
+        for es in edge_sets:
+            for hd in (False, True):
+                for hr in (False, True):
+                    args = (*ec, ealive[:n_e], tid, *es, hd, hr, blk)
+                    _exact("member_tiles edge",
+                           [t for st in sc.member_tiles(*args) for t in st],
+                           [t for st in sc.member_tiles_plain(*args)
+                            for t in st])
+                    edge_checks += 1
+
     emit({"phase": "kernels", "edge_checks": edge_checks,
           "shapes": {"compact_mask": cap, "compact_answers": n_ans,
                      "scan_rows": n, "scan_block": block,
                      "pair_search_table": T, "pair_search_queries": Q,
-                     "merge_a": na, "merge_b": mb},
-          "resident_branch": resident, "store_size_compaction": store_scan,
-          "peak_gib": peak_gib()})
+                     "merge_a": na, "merge_b": mb,
+                     "resident_a": int(pos.shape[0]), "resident_b": small_cap,
+                     "member_rows": nr, "member_block": rblock},
+          "member_tiles_one_stream": member[1],
+          "store_size_compaction": store_scan, "peak_gib": peak_gib()})
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
     emit({"kernels": rows})
@@ -490,11 +834,18 @@ def main() -> int:
 
     kind, count = phase_device()
     phase_build()
-    zero_counts()
-    kb1 = phase_lubm1()
-    kb100 = phase_lubm100()
-    launches = read_counts()
-    phase_kernels(kb1, kb100, launches)
+    launches = {}
+    kb1 = drive(launches, phase_lubm1,
+                need=("compact_tiles", "masked_interval_tiles", "pair_search",
+                      "member_tiles"))
+    kb100, raw = drive(launches, phase_lubm100,
+                       need=("merge_path", "pass/merge_partitioned"))
+    drive(launches, phase_lubm100_rewrite, kb100, need=("member_tiles",))
+    small_cap = drive(launches, phase_lubm100_live, kb100, raw,
+                      need=("compact_tiles", "member_tiles", "pair_search",
+                            "merge_path_resident", "merge_path"))
+    del raw
+    phase_kernels(kb1, kb100, launches, small_cap)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0

@@ -47,8 +47,12 @@ def _ancestor_rows(subj, anc, obj, ok):
 
 def full_materialize(kb, dtb: DeviceTBox | None = None):
     """kb.spo -> (closed spo (sorted), first-occurrence mask, stats)."""
-    spo = kb.spo
-    dtb = dtb or DeviceTBox.build(kb.tbox, device=spo.device)
+    dtb = dtb or DeviceTBox.build(kb.tbox, device=kb.spo.device)
+    return full_materialize_rows(kb.spo, dtb)
+
+
+def full_materialize_rows(spo, dtb: DeviceTBox):
+    """Full closure of any encoded rows (a store or a delta batch)."""
     s, p, o = spo[:, 0], spo[:, 1], spo[:, 2]
     is_type = p == dtb.rdf_type_id
 

@@ -16,7 +16,13 @@ A permutation is sorted on the store's device; its primary column and
 where range endpoints are found with numpy binary searches — O(log N) on
 a few cached arrays — while the row gathers happen on the device from the
 permuted rows.  Each permutation keeps its source-row permutation vector
-(the stable lexsort order) for the overlay machinery of later slices.
+(the stable lexsort order) so the overlay machinery (core/delta.py) can
+align per-row liveness masks with the sorted order without re-sorting.
+
+``merge_sorted`` is the host compaction primitive: two already-sorted runs
+of the same permutation (the base index and a small delta index)
+interleave into one sorted array by composite-key binary search — no
+re-sort of the base.
 """
 from __future__ import annotations
 
@@ -93,6 +99,7 @@ class _Perm:
     primary: np.ndarray  # host primary-sort column
     key: np.ndarray  # host (primary << 32 | secondary) composite keys
     perm: np.ndarray  # source-row index of each sorted row
+    inv: np.ndarray | None = None  # lazy original-row -> sorted-position map
 
 
 # (primary, secondary, tertiary) column indices per permutation name; the
@@ -124,6 +131,28 @@ class StoreIndex:
     def build(cls, spo: torch.Tensor) -> "StoreIndex":
         return cls(_h=spo.cpu().numpy(), _d=spo)
 
+    @classmethod
+    def from_sorted(cls, rows: np.ndarray, name: str,
+                    dev_rows: torch.Tensor) -> "StoreIndex":
+        """Wrap an array already sorted in permutation ``name`` order.
+
+        Used by compaction: the merged POS run doubles as the new store, so
+        the POS permutation is the identity and costs nothing to register.
+        ``dev_rows`` is the same rows on the store's device (the device-side
+        merge result, or the host merge uploaded once).
+        """
+        h = np.ascontiguousarray(rows)
+        idx = cls(_h=h, _d=dev_rows)
+        a, b, _ = _ORDERS[name]
+        primary = np.ascontiguousarray(h[:, a])
+        idx._perms[name] = _Perm(
+            rows=dev_rows,
+            primary=primary,
+            key=_composite(primary, h[:, b]),
+            perm=np.arange(h.shape[0], dtype=np.int64),
+        )
+        return idx
+
     def perm(self, name: str) -> _Perm:
         if name not in self._perms:
             a, b, _ = _ORDERS[name]
@@ -139,6 +168,20 @@ class StoreIndex:
                 perm=p.cpu().numpy(),
             )
         return self._perms[name]
+
+    def inv_perm(self, name: str) -> np.ndarray:
+        """original-row -> sorted-position map of permutation ``name``.
+
+        The device overlay caches (core/delta.py) need it to scatter
+        tombstone bits — recorded in original store coordinates — into the
+        permuted liveness buffers.  O(N) once per permutation, cached.
+        """
+        p = self.perm(name)
+        if p.inv is None:
+            inv = np.empty(p.perm.shape[0], dtype=np.int64)
+            inv[p.perm] = np.arange(p.perm.shape[0], dtype=np.int64)
+            p.inv = inv
+        return p.inv
 
     @property
     def n(self) -> int:
@@ -203,3 +246,28 @@ class StoreIndex:
 
 def _composite_scalar(a: int, b: int) -> np.int64:
     return (np.int64(a) << _SHIFT) | np.int64(b)
+
+
+def merge_sorted(a_rows: np.ndarray, a_key: np.ndarray,
+                 b_rows: np.ndarray, b_key: np.ndarray):
+    """Interleave two runs sorted by the same composite key -> (rows, key).
+
+    One binary search of the small run against the large one assigns every
+    row its merged position — the base run is never re-sorted.  Rows with
+    equal keys keep a-before-b order (stable).
+    """
+    n, m = a_key.shape[0], b_key.shape[0]
+    if m == 0:
+        return a_rows, a_key
+    if n == 0:
+        return b_rows, b_key
+    pos_b = np.searchsorted(a_key, b_key, side="right") + np.arange(m)
+    out_rows = np.empty((n + m, a_rows.shape[1]), dtype=a_rows.dtype)
+    out_key = np.empty(n + m, dtype=np.int64)
+    mask_b = np.zeros(n + m, dtype=bool)
+    mask_b[pos_b] = True
+    out_rows[pos_b] = b_rows
+    out_key[pos_b] = b_key
+    out_rows[~mask_b] = a_rows
+    out_key[~mask_b] = a_key
+    return out_rows, out_key

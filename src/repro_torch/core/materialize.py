@@ -208,7 +208,11 @@ def msc_select(inst, conc, explicit, dtb: DeviceTBox):
 def lite_materialize(kb, dtb: DeviceTBox | None = None):
     """kb.spo -> (materialized spo (padded), valid mask, stats dict)."""
     dtb = dtb or DeviceTBox.build(kb.tbox, device=kb.spo.device)
-    spo = kb.spo
+    return lite_materialize_rows(kb.spo, dtb)
+
+
+def lite_materialize_rows(spo, dtb: DeviceTBox):
+    """Lite materialization of any encoded rows (a store or a delta batch)."""
     inst, conc, explicit = candidate_types(spo, dtb)
     inst_s, conc_s, keep, n_expl, n_drop, n_add = msc_select(
         inst, conc, explicit, dtb)

@@ -1,12 +1,13 @@
 """Conjunctive SPARQL evaluation over encoded triples — the paper's §V.
 
-Two execution modes of the paper's Table VI are ported here:
+Three execution modes, matching the paper's Table VI columns:
 
   * ``litemat``  — interval predicates (one compare per sub-hierarchy) over
                    the lite-materialized store,
-  * ``full``     — plain equality over the fully materialized store.
-
-(The third, ``rewrite``, waits for a later slice; the engine refuses it.)
+  * ``full``     — plain equality over the fully materialized store,
+  * ``rewrite``  — the no-materialization baseline: constants expanded
+                   host-side to their sub-concept/property id sets,
+                   evaluated as OR-filters over the raw store.
 
 The algebra is the paper's filter→map→join pipeline in the reference's
 static-shape discipline: every operator carries a capacity + validity mask
@@ -15,6 +16,12 @@ an overflow is reported (power-of-two buckets).  Eager torch would not need
 fixed capacities; the port keeps them so that plans, explain() output and
 overflow retries match the reference step for step.
 
+Stores are *live*: the engine executes against a StoreView (core/delta.py)
+— an immutable base plus a small delta overlay with tombstones.  Each view
+key reaches the device as a base array and a power-of-two delta bucket,
+addressed in combined [base | delta] coordinates; every pattern scans or
+probes both sources and filters rows through their liveness bits.
+
 Execution strategy per pattern (chosen host-side during planning):
 
   * ``slice`` — a litemat/full pattern with a pure-interval constant
@@ -22,10 +29,12 @@ Execution strategy per pattern (chosen host-side during planning):
     view): host binary searches yield contiguous row ranges, and the device
     work is one gather.  The range lengths give the planner cardinalities
     with zero device passes.
-  * ``scan``  — the ``use_index=False`` path streams the store once through
-    the compaction kernel (kernels/stream_compact.py); simple interval
-    predicates fuse the filter and the liveness mask into the same pass,
-    and the compaction's total doubles as the match count.
+  * ``scan``  — residual patterns (rewrite mode, member sets, and the
+    ``use_index=False`` path) stream the store once through the compaction
+    kernels (kernels/stream_compact.py): simple interval predicates fuse
+    the filter and the liveness mask into one pass, the rewrite type
+    pattern its member-set searches; the compaction's total doubles as the
+    match count.
   * ``inl``   — index-nested-loop: a tiny probe side binary-searches a
     sorted permutation (kernels/pair_search.py, or the merge-path kernel
     for tables past ``INL_RESIDENT_MAX`` rows).
@@ -52,6 +61,8 @@ from repro_torch.core.delta import StoreView
 from repro_torch.core.index import key_cols, pow2_bucket as _pow2
 from repro_torch.core.materialize import DeviceTBox
 from repro_torch.kernels import ops
+from repro_torch.kernels.stream_compact import in_set as _in_set
+from repro_torch.kernels.stream_compact import member_masks
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.utils.pair64 import pair_key
@@ -91,11 +102,12 @@ class Pattern:
 
 @dataclass
 class Term:
-    """A resolved pattern constant: interval [lo, hi) + optional spills."""
+    """A resolved pattern constant: interval [lo, hi) + optional spills/set."""
 
     lo: int
     hi: int
     spills: tuple = ()  # ((lo, hi), ...)
+    members: np.ndarray | None = None  # explicit id set (rewrite mode)
 
     def intervals(self):
         return [(self.lo, self.hi)] + list(self.spills)
@@ -112,8 +124,9 @@ class Term:
 
 @dataclass(frozen=True)
 class TermSig:
-    kind: str  # 'interval'
+    kind: str  # 'interval' | 'members'
     n_spills: int = 0
+    mem_cap: int = 0  # padded power-of-two member-set length
 
 
 @dataclass(frozen=True)
@@ -126,6 +139,9 @@ class PatternSig:
     store: str = "pos"  # slice/inl: which sorted permutation
     k: int = 1  # slice: number of contiguous ranges
     residual: tuple = ()  # slice/inl: positions re-checked after the gather
+    # rewrite type pattern: (dom_cap, rng_cap, has_dom, has_rng) — the flags
+    # select the kernel's branches, so empty domain/range sets cost nothing
+    extra_caps: tuple | None = None
     fused: bool = False  # scan: predicate fused into the compaction kernel
     probe_pos: int = -1  # inl: pattern position the bound var probes (0|2)
     n_pids: int = 0  # inl: how many distinct store pids are probed
@@ -135,10 +151,22 @@ def _clip32(v) -> int:
     return int(np.clip(int(v), _I32_MIN, _I32_MAX))
 
 
-def _lower_term(t: Term | None):
-    """Host Term -> (TermSig, int32-clipped bounds tuple) or (None, None)."""
+def _pad_set(ids: np.ndarray, device):
+    """Sorted id set -> (pow2 bucket, INT32_MAX-padded device tensor)."""
+    cap = _pow2(len(ids))
+    out = np.full(cap, _I32_MAX, np.int32)
+    out[: len(ids)] = ids
+    return cap, torch.as_tensor(out, device=device)
+
+
+def _lower_term(t: Term | None, device):
+    """Host Term -> (TermSig, constants) or (None, None): an interval's
+    int32-clipped bounds tuple, or a member set as a padded device tensor."""
     if t is None:
         return None, None
+    if t.members is not None:
+        cap, mem = _pad_set(t.members, device)
+        return TermSig("members", mem_cap=cap), mem
     vals = [_clip32(t.lo), _clip32(t.hi)]
     for lo, hi in t.spills:
         vals += [_clip32(lo), _clip32(hi)]
@@ -146,7 +174,10 @@ def _lower_term(t: Term | None):
 
 
 def _term_mask_dyn(col, sig: TermSig, vals):
-    """Per-column membership mask of an interval term (+ its spills)."""
+    """Per-column membership mask of a term: its member set, or its
+    interval (+ spills)."""
+    if sig.kind == "members":
+        return _in_set(col, vals)
     m = (col >= vals[0]) & (col < vals[1])
     for i in range(sig.n_spills):
         m = m | ((col >= vals[2 + 2 * i]) & (col < vals[3 + 2 * i]))
@@ -161,7 +192,11 @@ def _pattern_const_key(terms):
     different constants (Q3's Professors vs Q4's Chairs) get distinct
     buckets, so one's observation never aliases the other's plan.
     """
-    return tuple(None if t is None else (t.lo, t.hi, t.spills) for t in terms)
+    return tuple(
+        None if t is None else
+        (t.lo, t.hi, t.spills,
+         None if t.members is None else t.members.tobytes())
+        for t in terms)
 
 
 def _scan_mask(sig: PatternSig, spo, alive, dyn):
@@ -235,8 +270,74 @@ def _gather_ranges(ds, starts, lens, cap: int):
     return rows, ok & alive, total
 
 
+def _stitch_compact(take_b, total_b, take_d, total_d, base_n: int, cap: int):
+    """Fuse two per-source compactions into one combined-coordinate take.
+
+    Base matches come first (base-store row indices as they are), delta
+    matches follow offset by ``base_n`` — the addressing the range lookups
+    use, so downstream gathers are shared with the slice path.
+    """
+    j = torch.arange(cap, dtype=torch.int64, device=take_b.device)
+    use_b = j < total_b
+    di = (j - total_b).clamp(0, cap - 1)
+    take = torch.where(use_b, take_b, base_n + take_d[di])
+    total = total_b + total_d
+    return take, j < torch.clamp(total, max=cap), total
+
+
+def _masked_compact_both(ds, mask_b, mask_d, cap: int):
+    """Compact one mask per source and stitch into combined coordinates."""
+    take_b, ok_b, tb = ops.compact_indices(
+        mask_b, cap, block=ops.auto_block(mask_b.shape[0]))
+    if mask_d is None:  # delta-free view: single-source plan
+        return take_b, ok_b, tb
+    take_d, _, td = ops.compact_indices(
+        mask_d, cap, block=ops.auto_block(mask_d.shape[0]))
+    return _stitch_compact(take_b, tb, take_d, td, ds.base.shape[0], cap)
+
+
+def _rewrite_type_bindings(sig: PatternSig, ds, dyn, cap: int):
+    """Rewrite-mode type pattern -> (ok, total, xcol of ?x bindings).
+
+    Subject-binding rows (explicit/domain) and object-binding rows (range)
+    are compacted independently per source by the member-compaction kernel
+    and their bound values stitched: a row entailing the target through
+    both branches yields two bindings.
+    """
+    _, _, has_dom, has_rng = sig.extra_caps
+    mem, tid = dyn["o"], dyn["tid"]
+    dom, rng = dyn["dom"], dyn["rng"]
+    base_n = ds.base.shape[0]
+    out_b = ops.rewrite_member_compact(
+        ds.base, ds.base_alive, tid, mem, dom, rng, cap, has_dom, has_rng,
+        block=ops.auto_block(base_n))
+    out_d = None
+    if ds.delta is not None:
+        out_d = ops.rewrite_member_compact(
+            ds.delta, ds.delta_alive, tid, mem, dom, rng, cap, has_dom,
+            has_rng, block=ops.auto_block(ds.delta.shape[0]))
+    take_s, ok_s, total_s = out_b[0:3]
+    if out_d is not None:
+        take_s, ok_s, total_s = _stitch_compact(
+            out_b[0], out_b[2], out_d[0], out_d[2], base_n, cap)
+    vals_s = ops.two_source_gather(ds.base, ds.delta, take_s)[:, 0]
+    if not has_rng:  # no object branch: the subject stream is the answer
+        return ok_s, total_s, vals_s
+    take_o, total_o = out_b[3], out_b[5]
+    if out_d is not None:
+        take_o, _, total_o = _stitch_compact(
+            out_b[3], out_b[5], out_d[3], out_d[5], base_n, cap)
+    vals_o = ops.two_source_gather(ds.base, ds.delta, take_o)[:, 2]
+    j = torch.arange(cap, dtype=torch.int64, device=vals_s.device)
+    use_s = j < total_s
+    vo = vals_o[(j - total_s).clamp(0, cap - 1)]
+    xcol = torch.where(use_s, vals_s, vo)
+    total = total_s + total_o
+    return j < torch.clamp(total, max=cap), total, xcol
+
+
 def _scan_compact(sig: PatternSig, ds, dyn, cap: int):
-    """Scan a view key -> (take, ok, total)."""
+    """Scan both sources of a view key -> (take, ok, total)."""
     base_n = ds.base.shape[0]
     if sig.fused:
         pv, ov = dyn.get("p"), dyn.get("o")
@@ -244,11 +345,19 @@ def _scan_compact(sig: PatternSig, ds, dyn, cap: int):
                   pv[1] if pv is not None else _I32_MAX,
                   ov[0] if ov is not None else _I32_MIN,
                   ov[1] if ov is not None else _I32_MAX)
-        return ops.masked_interval_compact(
+        take_b, ok_b, tb = ops.masked_interval_compact(
             ds.base[:, 1], ds.base[:, 2], ds.base_alive, params, cap,
             block=ops.auto_block(base_n))
-    mask = _scan_mask(sig, ds.base, ds.base_alive, dyn)
-    return ops.compact_indices(mask, cap, block=ops.auto_block(base_n))
+        if ds.delta is None:
+            return take_b, ok_b, tb
+        take_d, _, td = ops.masked_interval_compact(
+            ds.delta[:, 1], ds.delta[:, 2], ds.delta_alive, params, cap,
+            block=ops.auto_block(ds.delta.shape[0]))
+        return _stitch_compact(take_b, tb, take_d, td, base_n, cap)
+    mask_b = _scan_mask(sig, ds.base, ds.base_alive, dyn)
+    mask_d = (None if ds.delta is None
+              else _scan_mask(sig, ds.delta, ds.delta_alive, dyn))
+    return _masked_compact_both(ds, mask_b, mask_d, cap)
 
 
 def _eval_pattern(sig: PatternSig, cap: int, stores, dyn):
@@ -264,6 +373,13 @@ def _eval_pattern(sig: PatternSig, cap: int, stores, dyn):
         return _build_relation(sig.pvars, s, p, o, ok, total, cap), total
 
     ds = stores["scan"]
+    if sig.extra_caps is not None:  # rewrite-mode type pattern (?x rdf:type C)
+        ok, total, xcol = _rewrite_type_bindings(sig, ds, dyn, cap)
+        var = next(v for v in sig.pvars if v is not None)
+        rel = Relation(vars=(var,),
+                       cols=torch.where(ok, xcol, INVALID)[None, :],
+                       valid=ok, overflow=_overflow(total, cap))
+        return rel, total
     take, ok, total = _scan_compact(sig, ds, dyn, cap)
     g = ops.two_source_gather(ds.base, ds.delta, take)
     return _build_relation(sig.pvars, g[:, 0], g[:, 1], g[:, 2], ok, total,
@@ -317,6 +433,10 @@ def _eval_inl(sig: PatternSig, cap: int, stores, dyn, rel: Relation):
     qlo = qlo1.repeat(sig.n_pids)
     qhi = torch.where(valid, pid_arr.repeat_interleave(k), INVALID)
     starts, lens = _inl_ranges(ds.base, prim, sec, qhi, qlo, valid)
+    if ds.delta is not None:  # probe the delta bucket too, offset past base
+        st_d, ln_d = _inl_ranges(ds.delta, prim, sec, qhi, qlo, valid)
+        starts = torch.cat([starts, st_d + ds.base.shape[0]])
+        lens = torch.cat([lens, ln_d])
     src, ok, total, seg = ops.segment_positions(starts, lens, cap)
     rows = ops.two_source_gather(ds.base, ds.delta, src)
     alive = ops.two_source_gather(ds.base_alive, ds.delta_alive, src)
@@ -351,11 +471,11 @@ def _eval_inl(sig: PatternSig, cap: int, stores, dyn, rel: Relation):
     ), total
 
 
-def _lower_scan(pvars, terms, mode: str):
+def _lower_scan(pvars, terms, extra, mode: str, device):
     """Lower one pattern to a scan signature + constants."""
-    s_sig, s_dyn = _lower_term(terms[0])
-    p_sig, p_dyn = _lower_term(terms[1])
-    o_sig, o_dyn = _lower_term(terms[2])
+    s_sig, s_dyn = _lower_term(terms[0], device)
+    p_sig, p_dyn = _lower_term(terms[1], device)
+    o_sig, o_dyn = _lower_term(terms[2], device)
     dyn = {}
     if s_dyn is not None:
         dyn["s"] = s_dyn
@@ -363,13 +483,22 @@ def _lower_scan(pvars, terms, mode: str):
         dyn["p"] = p_dyn
     if o_dyn is not None:
         dyn["o"] = o_dyn
+    if extra is not None:
+        tid, dom, rng = extra
+        dom_cap, dom_arr = _pad_set(dom, device)
+        rng_cap, rng_arr = _pad_set(rng, device)
+        dyn.update(tid=int(tid), dom=dom_arr, rng=rng_arr)
+        return PatternSig(
+            pvars=pvars, strategy="scan", o_sig=o_sig,
+            extra_caps=(dom_cap, rng_cap, bool(len(dom)), bool(len(rng))),
+        ), dyn
     # litemat/full stores are compacted (no INVALID rows), so pure-interval
     # predicates on p/o can fuse into the compaction kernel's one pass
     fused = (
         mode in ("litemat", "full")
         and s_sig is None
-        and (p_sig is None or p_sig.n_spills == 0)
-        and (o_sig is None or o_sig.n_spills == 0)
+        and (p_sig is None or (p_sig.kind == "interval" and p_sig.n_spills == 0))
+        and (o_sig is None or (o_sig.kind == "interval" and o_sig.n_spills == 0))
     )
     return PatternSig(pvars=pvars, strategy="scan", s_sig=s_sig, p_sig=p_sig,
                       o_sig=o_sig, fused=fused), dyn
@@ -459,15 +588,15 @@ def distinct(rel: Relation, select: tuple, cap: int) -> Relation:
 @dataclass
 class QueryEngine:
     kb: EncodedKB
-    spo: torch.Tensor  # the store to query (lite / full)
-    mode: str = "litemat"  # litemat | full
+    spo: torch.Tensor  # the store to query (lite / full / original)
+    mode: str = "litemat"  # litemat | full | rewrite
     dtb: DeviceTBox | None = None
     slack: float = 1.5
     use_index: bool = True  # resolve eligible patterns via sorted indexes
     use_inl: bool = True  # index-nested-loop joins when one side is tiny
     inl_factor: int = 8  # pattern must outweigh the probe side by this much
     inl_max_probe: int = 4096  # never INL above this probe-side estimate
-    view: StoreView | None = None  # store view (None: static view of spo)
+    view: StoreView | None = None  # live base+delta view (None: static store)
     _exec_cache: dict = field(default_factory=dict, repr=False)
     cache_stats: dict = field(default_factory=lambda: {"hits": 0, "misses": 0},
                               repr=False)
@@ -479,13 +608,16 @@ class QueryEngine:
     observed_selectivity: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
-        if self.mode not in ("litemat", "full"):
-            raise NotImplementedError(
-                f"mode {self.mode!r}: only litemat and full are ported")
         if self.dtb is None and self.kb.tbox is not None:
             self.dtb = DeviceTBox.build(self.kb.tbox, device=self.spo.device)
         if self.view is None:
             self.view = StoreView.static(self.spo)
+
+    def set_view(self, view: StoreView) -> None:
+        """Swap in a fresh store view after a mutation (the plan cache
+        survives: plans are keyed on signatures and capacity buckets)."""
+        self.view = view
+        self.spo = view.base_rows
 
     @property
     def device(self) -> torch.device:
@@ -504,6 +636,9 @@ class QueryEngine:
         else:
             enc = None
         if enc is not None and (name in enc.name_to_id or name in enc.tax.merged):
+            if self.mode == "rewrite":
+                return Term(lo=0, hi=0, members=np.sort(np.array(
+                    enc.subsumees(name), dtype=np.int32)))
             if self.mode == "full":
                 i = enc.id_of(name)
                 return Term(lo=i, hi=i + 1)
@@ -515,7 +650,7 @@ class QueryEngine:
         return Term(lo=int(ids[0]), hi=int(ids[0]) + 1)
 
     def _prepare(self, patterns):
-        """Resolve constants -> [(pvars, terms)]."""
+        """Resolve constants; attach rewrite extras for type patterns."""
         prepared = []
         for pat in patterns:
             p_is_const = not is_var(pat.p)
@@ -528,18 +663,52 @@ class QueryEngine:
                 None if is_var(pat.o) else self._resolve(pat.o, "o", type_pat),
             )
             pvars = tuple(t if is_var(t) else None for t in (pat.s, pat.p, pat.o))
-            prepared.append((pvars, terms))
+            extra = None
+            if self.mode == "rewrite" and type_pat and terms[2] is not None and is_var(pat.s):
+                extra = self._rewrite_extra(terms[2])
+            prepared.append((pvars, terms, extra))
         return prepared
 
+    def _rewrite_extra(self, o_term: Term):
+        """Property sets whose (effective) domain/range entails the target."""
+        tbox = self.kb.tbox
+        targets = set(o_term.members.tolist())
+        dom_set, rng_set = [], []
+        dr_ids = self.dtb.dr_prop_ids.cpu().numpy()
+        dom_tbl = self.dtb.domain_table.cpu().numpy()
+        rng_tbl = self.dtb.range_table.cpu().numpy()
+        penc = tbox.properties
+        for i, pid in enumerate(dr_ids.tolist()):
+            if pid < 0:
+                continue
+            doms = [v for v in dom_tbl[i].tolist() if v >= 0]
+            rngs = [v for v in rng_tbl[i].tolist() if v >= 0]
+            subs = penc.subsumees(penc.name_of(pid))  # sub-properties inherit
+            if any(d in targets for d in doms):
+                dom_set.extend(subs)
+            if any(r in targets for r in rngs):
+                rng_set.extend(subs)
+        return (
+            int(tbox.rdf_type_id),
+            np.sort(np.unique(np.array(dom_set, dtype=np.int32))),
+            np.sort(np.unique(np.array(rng_set, dtype=np.int32))),
+        )
+
     # -- pattern lowering: strategy choice + cardinality ---------------------
-    def _lower(self, pvars, terms):
+    def _lower(self, pvars, terms, extra):
         """-> (PatternSig, dyn, host count or None).
 
-        ``count`` is exact and free (range lengths) for slice patterns;
-        scan patterns report None and are counted by one device pass.
+        ``count`` is exact (an upper bound when tombstones sit inside a
+        range) and free for slice patterns; scan patterns report None and
+        are counted by one device pass.  Rewrite mode always scans.
         """
         s_t, p_t, o_t = terms
-        indexable = self.use_index
+        indexable = (
+            self.use_index
+            and extra is None
+            and self.mode in ("litemat", "full")
+            and all(t is None or t.members is None for t in terms)
+        )
         if indexable and p_t is not None:
             view = self.view
             # effective predicate id: exact single-width interval, or a wide
@@ -563,14 +732,14 @@ class QueryEngine:
                     ranges = [r for a, b in p_t.intervals()
                               for r in view.p_ranges(a, b)]
                     residual = (2,)
-                    o_sig, o_dyn = _lower_term(o_t)
+                    o_sig, o_dyn = _lower_term(o_t, self.device)
             elif s_t is not None and pid is not None:
                 ranges = [r for a, b in s_t.intervals()
                           for r in view.ps_ranges(pid, a, b)]
                 store = "pso"
                 if o_t is not None:  # o re-checked on the gathered rows
                     residual = (2,)
-                    o_sig, o_dyn = _lower_term(o_t)
+                    o_sig, o_dyn = _lower_term(o_t, self.device)
             if ranges is not None:
                 return self._slice_plan(pvars, ranges, store, residual,
                                         o_sig=o_sig, o_dyn=o_dyn)
@@ -584,13 +753,13 @@ class QueryEngine:
                 residual, o_sig, o_dyn = (), None, None
                 if o_t is not None:  # (s ?p o): o re-checked after the gather
                     residual = (2,)
-                    o_sig, o_dyn = _lower_term(o_t)
+                    o_sig, o_dyn = _lower_term(o_t, self.device)
                 return self._slice_plan(pvars, ranges, "spo", residual,
                                         o_sig=o_sig, o_dyn=o_dyn)
             ranges = [r for a, b in o_t.intervals()
                       for r in view.o_ranges(a, b)]
             return self._slice_plan(pvars, ranges, "osp", ())
-        sig, dyn = _lower_scan(pvars, terms, self.mode)
+        sig, dyn = _lower_scan(pvars, terms, extra, self.mode, self.device)
         return sig, dyn, None
 
     def _slice_plan(self, pvars, ranges, store, residual, o_sig=None,
@@ -615,7 +784,25 @@ class QueryEngine:
         fn = self._exec_cache.get(key)
         if fn is None:
             def fn(ds, d, _sig=sig):
-                return _scan_mask(_sig, ds.base, ds.base_alive, d).sum()
+                sources = [(ds.base, ds.base_alive)]
+                if ds.delta is not None:
+                    sources.append((ds.delta, ds.delta_alive))
+                total = 0
+                for spo, alive in sources:
+                    if _sig.extra_caps is not None:
+                        # the rewrite type pattern's subject and object
+                        # branches (execution fuses them into K4); a row can
+                        # bind through BOTH: count both
+                        ms, mo = member_masks(
+                            spo[:, 0], spo[:, 1], spo[:, 2], alive, d["tid"],
+                            d["o"], d["dom"], d["rng"], _sig.extra_caps[2],
+                            _sig.extra_caps[3])
+                        total += ms.sum()
+                        if mo is not None:
+                            total += mo.sum()
+                    else:
+                        total += _scan_mask(_sig, spo, alive, d).sum()
+                return total
             self._exec_cache[key] = fn
         return int(fn(self.view.dev("scan"), dyn))
 
@@ -710,7 +897,8 @@ class QueryEngine:
         probe-constant bucket) decides alone: it can convert a pattern the
         heuristic rejected, or veto one it accepted.
         """
-        indexable = self.use_inl and self.use_index
+        indexable = (self.use_inl and self.use_index
+                     and self.mode in ("litemat", "full"))
         if not indexable or len(order) < 2:
             return
         store_n = max(self.view.n, 1)
@@ -718,12 +906,14 @@ class QueryEngine:
         est = counts[order[0]]
         ctx = [ckeys[order[0]]]  # probe provenance: const keys walked so far
         for i in order[1:]:
-            pvars, terms = prepared[i]
+            pvars, terms, extra = prepared[i]
             pat_vars = {v for v in pvars if v}
             heuristic = counts[i] >= self.inl_factor * max(est, 1)
             eligible = (
-                est <= self.inl_max_probe
+                extra is None
+                and est <= self.inl_max_probe
                 and terms[1] is not None
+                and all(t is None or t.members is None for t in terms)
                 and (heuristic or bool(self.observed_selectivity))
             )
             if eligible:
@@ -743,7 +933,7 @@ class QueryEngine:
                     residual = ()
                     r_sig = None
                     if res_t is not None:
-                        r_sig, r_dyn = _lower_term(res_t)
+                        r_sig, r_dyn = _lower_term(res_t, self.device)
                         residual = (res_pos,)
                         dyn[("s", "p", "o")[res_pos]] = r_dyn
                     sig = PatternSig(

@@ -1,21 +1,29 @@
 // Tile-local stable stream compaction for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of src/repro/kernels/stream_compact.py:
+// Replaces three TPU kernels of src/repro/kernels/stream_compact.py:
 //   * stream_compact_pallas           (compaction of a precomputed 0/1 mask)
 //   * masked_interval_compact_pallas  (plo <= p < phi && olo <= o < ohi &&
 //                                      alive, fused with the compaction)
-// One templated kernel serves both; the predicate is the template parameter.
+//   * member_compact_pallas           (the rewrite-mode type pattern: the
+//                                      subject stream (p == tid && o in mem)
+//                                      || p in dom and, if has_rng, the
+//                                      object stream p in rng, each && alive
+//                                      && s != INVALID, each compacted)
+// One templated kernel serves all three: the predicate and the number of
+// output streams are template parameters.
 //
-// Contract (ref_stream_compact): tile t covers rows [t*block, (t+1)*block).
-// Its output slice local[t*block : (t+1)*block] holds the global indices of
-// the tile's matching rows in ascending order, INVALID (INT32_MAX) behind
-// them, and counts[t] is the tile's match count.  Rows >= n are padding and
-// never match, so the caller passes the unpadded columns.
+// Contract (ref_stream_compact), per stream: tile t covers rows
+// [t*block, (t+1)*block).  Its output slice local[t*block : (t+1)*block]
+// holds the global indices of the tile's matching rows in ascending order,
+// INVALID (INT32_MAX) behind them, and counts[t] is the tile's match count.
+// Rows >= n are padding and never match, so the caller passes the unpadded
+// columns.
 //
 // What bounds it on the H100: device memory.  Per row it reads the mask
 // (1 B), or p and o (4 B each, by stride from the [N, 3] store rows) plus
-// alive (1 B), and writes one int32 of local output: 5 B or 13 B a row, no
-// arithmetic to speak of.
+// alive (1 B), or s, p, o and alive (13 B), and writes one int32 of local
+// output per stream: no arithmetic to speak of.  The member sets' binary
+// searches run in shared memory.
 //
 // Design: the TPU body builds a (chunk, chunk) one-hot cube because the TPU
 // has no vector scatter.  Here each row is one thread: a warp ballot and a
@@ -24,8 +32,17 @@
 // and a running offset carries the chunks of a tile (4096-row tiles take
 // eight).  Each matching row then writes its index straight to its slot;
 // the tile ends with one pass writing INVALID behind the matches.  Reads of
-// consecutive rows by consecutive threads coalesce; p and o are read in
+// consecutive rows by consecutive threads coalesce; s, p and o are read in
 // place from the store rows so a scan never copies a column.
+//
+// The member sets of K4 are sorted and INT32_MAX-padded to a power of two
+// (query.py::_pad_set).  Each CTA stages a set of at most kStageMax ids into
+// shared memory once, as the TPU keeps them resident in VMEM; a larger set
+// (a deep ontology's concept with thousands of subsumees) is searched where
+// it lies, in device memory through the read-only cache.  A search is the
+// lower bound of the value (log2(K) + 1 steps), as _in_set_tile's is: the
+// value is a member iff the slot it lands on holds it and it is not INVALID,
+// so an all-padding set matches nothing and INVALID never matches a pad.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,63 +51,176 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int32_t kInvalid = 0x7fffffff;
+constexpr int kStageMax = 2048;  // ids staged per set: 8 KB of shared memory
 
 struct MaskPred {
+  static constexpr int kStreams = 1;
   const uint8_t* mask;
-  __device__ __forceinline__ bool operator()(int64_t i) const {
-    return __ldg(mask + i) != 0;
+  __device__ __forceinline__ void stage(int32_t*) {}
+  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
+    hit[0] = __ldg(mask + i) != 0;
   }
 };
 
 struct MaskedIntervalPred {
+  static constexpr int kStreams = 1;
   const int32_t* p;
   const int32_t* o;
   int64_t stride;  // int32 elements between consecutive rows of p and o
   const uint8_t* alive;
   int32_t plo, phi, olo, ohi;
-  __device__ __forceinline__ bool operator()(int64_t i) const {
+  __device__ __forceinline__ void stage(int32_t*) {}
+  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
     const int32_t pv = __ldg(p + i * stride);
     const int32_t ov = __ldg(o + i * stride);
-    return pv >= plo && pv < phi && ov >= olo && ov < ohi &&
-           __ldg(alive + i) != 0;
+    hit[0] = pv >= plo && pv < phi && ov >= olo && ov < ohi &&
+             __ldg(alive + i) != 0;
   }
+};
+
+// A sorted, INT32_MAX-padded id set of k (a power of two) entries.
+struct IdSet {
+  const int32_t* ids;  // device memory, or shared memory once staged
+  int k;
+
+  // Copy the set into shared memory at ``smem`` if it fits; returns the
+  // number of int32 slots taken there (0 when it stays in device memory).
+  __device__ __forceinline__ int stage(int32_t* smem) {
+    if (k > kStageMax) return 0;
+    for (int i = threadIdx.x; i < k; i += blockDim.x) smem[i] = __ldg(ids + i);
+    ids = smem;
+    return k;
+  }
+
+  __device__ __forceinline__ bool contains(int32_t v) const {
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ids[mid] < v) lo = mid + 1; else hi = mid;
+    }
+    const int pos = lo < k ? lo : k - 1;
+    return ids[pos] == v && v != kInvalid;
+  }
+};
+
+template <bool HasDom, bool HasRng>
+struct MemberPred {
+  static constexpr int kStreams = HasRng ? 2 : 1;
+  const int32_t* s;
+  const int32_t* p;
+  const int32_t* o;
+  int64_t stride;  // int32 elements between consecutive rows of s, p, o
+  const uint8_t* alive;
+  int32_t tid;
+  IdSet mem, dom, rng;
+
+  // Run by every thread of the CTA before the first row; a barrier follows.
+  __device__ __forceinline__ void stage(int32_t* smem) {
+    int used = mem.stage(smem);
+    if constexpr (HasDom) used += dom.stage(smem + used);
+    if constexpr (HasRng) rng.stage(smem + used);
+  }
+
+  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
+    const int32_t sv = __ldg(s + i * stride);
+    const int32_t pv = __ldg(p + i * stride);
+    const int32_t ov = __ldg(o + i * stride);
+    const bool valid = sv != kInvalid && __ldg(alive + i) != 0;
+    bool ms = pv == tid && mem.contains(ov);
+    if constexpr (HasDom) ms = ms || dom.contains(pv);
+    hit[0] = ms && valid;
+    if constexpr (HasRng) hit[1] = valid && rng.contains(pv);
+  }
+};
+
+template <int NS>
+struct Outputs {
+  int32_t* local[NS];
+  int32_t* counts[NS];
 };
 
 template <typename Pred>
 __global__ void __launch_bounds__(kThreads)
-compact_tiles(Pred pred, int64_t n, int block, int32_t* local,
-              int32_t* counts) {
-  __shared__ int warp_counts[kWarps];
+compact_tiles(Pred pred, int64_t n, int block, Outputs<Pred::kStreams> out) {
+  constexpr int NS = Pred::kStreams;
+  extern __shared__ int32_t staged[];
+  __shared__ int warp_counts[NS][kWarps];
+  pred.stage(staged);
+  __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t tile0 = (int64_t)blockIdx.x * block;
-  int32_t* out = local + tile0;
-  int running = 0;  // matches of this tile's earlier chunks
+  int running[NS];  // matches of this tile's earlier chunks, per stream
+#pragma unroll
+  for (int st = 0; st < NS; ++st) running[st] = 0;
   for (int c = 0; c < block; c += kThreads) {
     const int j = c + (int)threadIdx.x;
     const int64_t row = tile0 + j;
-    const bool hit = j < block && row < n && pred(row);
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_counts[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, total = 0;
+    bool hit[NS];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int v = warp_counts[w];
-      before += w < warp ? v : 0;
-      total += v;
+    for (int st = 0; st < NS; ++st) hit[st] = false;
+    if (j < block && row < n) pred(row, hit);
+    unsigned ballot[NS];
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      ballot[st] = __ballot_sync(0xffffffffu, hit[st]);
+      if (lane == 0) warp_counts[st][warp] = __popc(ballot[st]);
     }
-    if (hit) {
-      out[running + before + __popc(ballot & ((1u << lane) - 1u))] =
-          (int32_t)row;
+    __syncthreads();
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int v = warp_counts[st][w];
+        before += w < warp ? v : 0;
+        total += v;
+      }
+      if (hit[st]) {
+        out.local[st][tile0 + running[st] + before +
+                      __popc(ballot[st] & ((1u << lane) - 1u))] = (int32_t)row;
+      }
+      running[st] += total;
     }
-    running += total;
     __syncthreads();  // warp_counts is rewritten by the next chunk
   }
-  for (int j = running + (int)threadIdx.x; j < block; j += kThreads) {
-    out[j] = kInvalid;
+#pragma unroll
+  for (int st = 0; st < NS; ++st) {
+    for (int j = running[st] + (int)threadIdx.x; j < block; j += kThreads) {
+      out.local[st][tile0 + j] = kInvalid;
+    }
+    if (threadIdx.x == 0) out.counts[st][blockIdx.x] = running[st];
   }
-  if (threadIdx.x == 0) counts[blockIdx.x] = running;
+}
+
+template <typename Pred>
+int launch(const Pred& pred, long long n, int block, int nb,
+           Outputs<Pred::kStreams> out, size_t smem_bytes, void* stream) {
+  compact_tiles<Pred><<<nb, kThreads, smem_bytes,
+                        static_cast<cudaStream_t>(stream)>>>(pred, n, block,
+                                                            out);
+  return (int)cudaGetLastError();
+}
+
+template <bool HasDom, bool HasRng>
+int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
+                  long long stride, const uint8_t* alive, int tid, IdSet mem,
+                  IdSet dom, IdSet rng, long long n, int block, int nb,
+                  int32_t* local_s, int32_t* counts_s, int32_t* local_o,
+                  int32_t* counts_o, void* stream) {
+  using Pred = MemberPred<HasDom, HasRng>;
+  Pred pred{s, p, o, stride, alive, tid, mem, dom, rng};
+  Outputs<Pred::kStreams> out;
+  out.local[0] = local_s;
+  out.counts[0] = counts_s;
+  if constexpr (HasRng) {
+    out.local[1] = local_o;
+    out.counts[1] = counts_o;
+  }
+  size_t staged = mem.k <= kStageMax ? mem.k : 0;
+  if (HasDom && dom.k <= kStageMax) staged += dom.k;
+  if (HasRng && rng.k <= kStageMax) staged += rng.k;
+  return launch(pred, n, block, nb, out, staged * sizeof(int32_t), stream);
 }
 
 }  // namespace
@@ -100,10 +230,8 @@ extern "C" int stream_compact_mask(const void* mask, long long n, int block,
                                    int nb, void* local, void* counts,
                                    void* stream) {
   MaskPred pred{static_cast<const uint8_t*>(mask)};
-  compact_tiles<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      pred, n, block, static_cast<int32_t*>(local),
-      static_cast<int32_t*>(counts));
-  return (int)cudaGetLastError();
+  Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
+  return launch(pred, n, block, nb, out, 0, stream);
 }
 
 // p, o: int32 columns with ``stride`` elements between rows (3 for the
@@ -118,8 +246,41 @@ extern "C" int masked_interval_compact(const void* p, const void* o,
                           static_cast<const int32_t*>(o), stride,
                           static_cast<const uint8_t*>(alive),
                           plo, phi, olo, ohi};
-  compact_tiles<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      pred, n, block, static_cast<int32_t*>(local),
-      static_cast<int32_t*>(counts));
-  return (int)cudaGetLastError();
+  Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
+  return launch(pred, n, block, nb, out, 0, stream);
+}
+
+// s, p, o: int32 columns with ``stride`` elements between rows; alive:
+// uint8[n] (torch.bool); mem/dom/rng: sorted INT32_MAX-padded int32 sets of
+// mem_k/dom_k/rng_k (powers of two) entries.  The object stream
+// (local_o/counts_o) is written only when has_rng.
+extern "C" int member_compact(const void* s, const void* p, const void* o,
+                              long long stride, const void* alive, int tid,
+                              const void* mem, int mem_k, const void* dom,
+                              int dom_k, const void* rng, int rng_k,
+                              int has_dom, int has_rng, long long n, int block,
+                              int nb, void* local_s, void* counts_s,
+                              void* local_o, void* counts_o, void* stream) {
+  const int32_t* sc = static_cast<const int32_t*>(s);
+  const int32_t* pc = static_cast<const int32_t*>(p);
+  const int32_t* oc = static_cast<const int32_t*>(o);
+  const uint8_t* al = static_cast<const uint8_t*>(alive);
+  IdSet ms{static_cast<const int32_t*>(mem), mem_k};
+  IdSet ds{static_cast<const int32_t*>(dom), dom_k};
+  IdSet rs{static_cast<const int32_t*>(rng), rng_k};
+  int32_t* ls = static_cast<int32_t*>(local_s);
+  int32_t* cs = static_cast<int32_t*>(counts_s);
+  int32_t* lo = static_cast<int32_t*>(local_o);
+  int32_t* co = static_cast<int32_t*>(counts_o);
+  if (has_dom && has_rng)
+    return launch_member<true, true>(sc, pc, oc, stride, al, tid, ms, ds, rs,
+                                     n, block, nb, ls, cs, lo, co, stream);
+  if (has_dom)
+    return launch_member<true, false>(sc, pc, oc, stride, al, tid, ms, ds, rs,
+                                      n, block, nb, ls, cs, lo, co, stream);
+  if (has_rng)
+    return launch_member<false, true>(sc, pc, oc, stride, al, tid, ms, ds, rs,
+                                      n, block, nb, ls, cs, lo, co, stream);
+  return launch_member<false, false>(sc, pc, oc, stride, al, tid, ms, ds, rs,
+                                     n, block, nb, ls, cs, lo, co, stream);
 }

@@ -6,11 +6,14 @@ The port of ``merge_path_partitioned_pallas`` (with ``_diag_splits``) and
 and run B (m keys), the source index — ``< n`` selects ``A[v]``, ``>= n``
 selects ``B[v - n]``; equal keys place A first (``ref_merge_sorted``).  One
 kernel (``csrc/merge_path.cu``) serves both of ``ops.merge_gather``'s
-branches.  Key planes may be strided column views (the table side of
-``ops.pair_search_windowed`` is two columns of the permuted store rows).
+branches, through two wrappers that count their own launches:
+``merge_path`` (the partitioned branch, K6) and ``merge_path_resident``
+(the branch for a run shorter than ``block``, K5).  Key planes may be
+strided column views (the table side of ``ops.pair_search_windowed`` is
+two columns of the permuted store rows).
 
-On a CPU tensor ``merge_path`` runs the plain version; on a CUDA tensor it
-launches the kernel (counted in ``merge_path.launches``) or raises.
+On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
+launches the kernel (counted in ``<wrapper>.launches``) or raises.
 """
 from __future__ import annotations
 
@@ -40,14 +43,13 @@ def merge_path_plain(a_hi, a_lo, b_hi, b_lo):
     return out
 
 
-def merge_path(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
-               b_lo: torch.Tensor, block: int = DEFAULT_BLOCK) -> torch.Tensor:
-    """Lex-sorted runs int32[n] / int32[m] (n, m >= 1) -> int32[n + m]."""
+def _merge(a_hi, a_lo, b_hi, b_lo, block: int):
+    """-> (gather map, whether the kernel was launched)."""
     n, m = a_hi.shape[0], b_hi.shape[0]
     if n == 0 or m == 0:
         raise ValueError("merge_path needs two non-empty runs")
     if a_hi.device.type == "cpu":
-        return merge_path_plain(a_hi, a_lo, b_hi, b_lo)
+        return merge_path_plain(a_hi, a_lo, b_hi, b_lo), False
     build.require_cuda(a_hi, a_lo, b_hi, b_lo)
     if any(t.dtype != torch.int32 or t.dim() != 1
            for t in (a_hi, a_lo, b_hi, b_lo)):
@@ -67,8 +69,29 @@ def merge_path(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
                    splits.data_ptr(), out.data_ptr(),
                    build.stream(a_hi.device)),
                 "merge_path")
-    merge_path.launches += 1
+    return out, True
+
+
+def merge_path(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+               b_lo: torch.Tensor, block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Lex-sorted runs int32[n] / int32[m] (n, m >= 1) -> int32[n + m].
+
+    ``ops.merge_gather``'s partitioned branch (both runs >= ``block``).
+    """
+    out, launched = _merge(a_hi, a_lo, b_hi, b_lo, block)
+    merge_path.launches += launched
+    return out
+
+
+def merge_path_resident(a_hi: torch.Tensor, a_lo: torch.Tensor,
+                        b_hi: torch.Tensor, b_lo: torch.Tensor,
+                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """``merge_path`` for ``ops.merge_gather``'s resident branch (a run
+    shorter than ``block``): the same kernel, its own launch count."""
+    out, launched = _merge(a_hi, a_lo, b_hi, b_lo, block)
+    merge_path_resident.launches += launched
     return out
 
 
 merge_path.launches = 0
+merge_path_resident.launches = 0

@@ -28,7 +28,9 @@ INVALID = int(np.iinfo(np.int32).max)
 # here they count wrapper calls — the per-launch counts live on the kernel
 # wrappers themselves (``<wrapper>.launches``).  Every bump is mirrored into
 # the process registry as ``kernels/passes{kind=...}``.
-pass_counters = {"compact": 0, "merge_resident": 0, "merge_partitioned": 0}
+# ``dual_compact`` stays 0 until K7 (``dual_compact_indices``) is ported.
+pass_counters = {"compact": 0, "dual_compact": 0, "member_compact": 0,
+                 "merge_resident": 0, "merge_partitioned": 0}
 _PASS_LOCK = threading.Lock()
 
 
@@ -106,33 +108,44 @@ def merge_gather(a_hi, a_lo, b_hi, b_lo, block: int = 1024):
     ``B[value - n]``; ties keep A-before-B order (``ref.ref_merge_sorted``).
     The dispatch and its counters are the reference's: the partitioned
     branch when both runs reach ``block`` rows, the resident branch
-    otherwise.  One merge-path kernel serves both.
+    otherwise.  One merge-path kernel serves both, through one wrapper
+    per branch (``merge_path`` / ``merge_path_resident``).
     """
     n, m = a_hi.shape[0], b_hi.shape[0]
     if m == 0:
         return torch.arange(n, dtype=torch.int32, device=a_hi.device)
     if n == 0:
         return torch.arange(m, dtype=torch.int32, device=a_hi.device)
-    _bump_pass("merge_partitioned" if n >= block and m >= block
-               else "merge_resident")
-    return _ms.merge_path(a_hi, a_lo, b_hi, b_lo, block=block)
+    if n >= block and m >= block:
+        _bump_pass("merge_partitioned")
+        return _ms.merge_path(a_hi, a_lo, b_hi, b_lo, block=block)
+    _bump_pass("merge_resident")
+    return _ms.merge_path_resident(a_hi, a_lo, b_hi, b_lo, block=block)
 
 
 def two_source_gather(base, delta, idx):
     """Gather rows addressed in combined [base | delta] coordinates.
 
-    Static stores have no delta (``delta=None``), so this is a plain base
-    gather; the overlay's second source arrives with the live store.
-    Indices are clamped into range, as the reference's gathers clamp them.
+    ``idx < base_n`` selects ``base[idx]``; the rest select
+    ``delta[idx - base_n]`` — the virtual concatenation every live store
+    view uses, so a mutation never re-concatenates the base.  ``delta=None``
+    (a delta-free view) is a plain base gather.  Indices are clamped into
+    range, as the reference's gathers clamp them.
     """
-    if delta is not None:
-        raise NotImplementedError("delta overlays are not ported yet")
     bn = base.shape[0]
     idx = idx.long()
-    if bn == 0:
-        return torch.zeros((idx.shape[0], *base.shape[1:]),
-                           dtype=base.dtype, device=base.device)
-    return base[idx.clamp(0, bn - 1)]
+    if delta is None or delta.shape[0] == 0:
+        if bn == 0:
+            return torch.zeros((idx.shape[0], *base.shape[1:]),
+                               dtype=base.dtype, device=base.device)
+        return base[idx.clamp(0, bn - 1)]
+    dn = delta.shape[0]
+    if bn == 0:  # fully compacted-away base: every coord is a delta coord
+        return delta[idx.clamp(0, dn - 1)]
+    b = base[idx.clamp(0, bn - 1)]
+    d = delta[(idx - bn).clamp(0, dn - 1)]
+    from_d = (idx >= bn).reshape(idx.shape + (1,) * (base.dim() - 1))
+    return torch.where(from_d, d, b)
 
 
 def segment_positions(starts, lens, cap: int):
@@ -176,6 +189,26 @@ def compact_indices(mask, cap: int, block: int = 512):
     return _assemble_compact(local, counts, cap, block)
 
 
+def rewrite_member_compact(spo, alive, tid: int, mem, dom, rng, cap: int,
+                           has_dom: bool, has_rng: bool, block: int = 512):
+    """Fused rewrite-mode type-pattern member-set masks + compaction.
+
+    One kernel pass over ``spo`` evaluates the RDFS reformulation of
+    ``(?x rdf:type C)`` — subject branch ``(p == tid & o in mem) | p in
+    dom`` and object branch ``p in rng`` — and compacts the matching row
+    indices of each branch.  Returns ``(take_s, ok_s, total_s)``, extended
+    with ``(take_o, ok_o, total_o)`` when ``has_rng``; each triple matches
+    the ``compact_indices`` contract.
+    """
+    _bump_pass("member_compact")
+    streams = _sc.member_tiles(spo[:, 0], spo[:, 1], spo[:, 2], alive, tid,
+                               mem, dom, rng, has_dom, has_rng, block)
+    out = ()
+    for local, counts in streams:
+        out += _assemble_compact(local, counts, cap, block)
+    return out
+
+
 def masked_interval_compact(p, o, alive, params, cap: int, block: int = 512):
     """Fused interval predicate + liveness mask + compaction in one pass.
 
@@ -189,7 +222,8 @@ def masked_interval_compact(p, o, alive, params, cap: int, block: int = 512):
 
 __all__ = [
     "pair_search", "pair_search_windowed", "compact_indices",
-    "masked_interval_compact", "merge_gather", "two_source_gather",
+    "masked_interval_compact", "rewrite_member_compact", "merge_gather",
+    "two_source_gather",
     "segment_positions", "auto_block", "LARGE_BLOCK", "pass_counters",
     "reset_pass_counters",
 ]

@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.kernels.merge_sorted import merge_path_plain
 from repro_torch.kernels.pair_search import pair_search_plain
-from repro_torch.kernels.stream_compact import compact_tiles_plain
+from repro_torch.kernels.stream_compact import (
+    compact_tiles_plain, member_tiles_plain,
+)
 
 ref_stream_compact = compact_tiles_plain
 ref_pair_search = pair_search_plain
@@ -23,3 +25,13 @@ def ref_merge_sorted(a_hi, a_lo, b_hi, b_lo):
     if m == 0 or n == 0:
         return torch.arange(n + m, dtype=torch.int32, device=a_hi.device)
     return merge_path_plain(a_hi, a_lo, b_hi, b_lo)
+
+
+def ref_member_compact(spo, alive, tid, mem, dom, rng, has_dom, has_rng,
+                       block):
+    """K4's oracle (the reference has none): the rewrite type pattern's
+    masks, as the reference's ``query.py::_type_rewrite_masks_dyn``
+    computes them, then ``ref_stream_compact`` of each — the plain version
+    over the store's columns -> [(local, counts)] per stream."""
+    return member_tiles_plain(spo[:, 0], spo[:, 1], spo[:, 2], alive, tid,
+                              mem, dom, rng, has_dom, has_rng, block)

@@ -1,15 +1,20 @@
 """Tile-local stable stream compaction: the CUDA kernel and its plain version.
 
-Two wrappers share one templated kernel (``csrc/stream_compact.cu``):
+Three wrappers share one templated kernel (``csrc/stream_compact.cu``):
 
   * ``compact_tiles``         — compacts a precomputed bool mask (the port
     of ``stream_compact_pallas``),
   * ``masked_interval_tiles`` — evaluates ``plo <= p < phi and olo <= o <
     ohi and alive`` per row and compacts in the same pass (the port of
     ``masked_interval_compact_pallas``); ``p`` and ``o`` may be strided
-    column views of an [N, 3] store, read in place.
+    column views of an [N, 3] store, read in place,
+  * ``member_tiles``          — the rewrite-mode type pattern (the port of
+    ``member_compact_pallas``): the subject stream ``(p == tid and o in
+    mem) or p in dom`` and, with ``has_rng``, the object stream ``p in
+    rng``, each ANDed with ``alive and s != INVALID`` and compacted on its
+    own; the sorted id sets are searched inside the kernel.
 
-Both return ``(local int32[nb * block], counts int32[nb])`` with the
+Each stream is ``(local int32[nb * block], counts int32[nb])`` with the
 contract of ``ref_stream_compact``: tile t's slice holds the global indices
 of its matching rows in ascending order, INVALID behind them.  Rows past
 the input length are padding and never match; an empty input still yields
@@ -123,3 +128,94 @@ def masked_interval_tiles(p: torch.Tensor, o: torch.Tensor,
 
 
 masked_interval_tiles.launches = 0
+
+
+def in_set(col: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Sorted-membership test; ``ids`` is INT32_MAX-padded (maybe all-pad)."""
+    pos = torch.searchsorted(ids, col.contiguous()).clamp(0, ids.shape[0] - 1)
+    return (ids[pos] == col) & (col != INVALID)
+
+
+def member_masks(s, p, o, alive, tid: int, mem, dom, rng, has_dom: bool,
+                 has_rng: bool):
+    """The rewrite type pattern ``(?x rdf:type C)``'s row masks.
+
+    Returns (mask_s, mask_o): rows binding ?x to their SUBJECT (explicit
+    type triples, domain-entailing predicates) and rows binding it to their
+    OBJECT (range-entailing predicates; None without ``has_rng``).  The
+    branches are not exclusive: a row entailing C through both binds both
+    endpoints.  The plain version's first half and the planner's counting
+    pass (the reference's ``_type_rewrite_masks_dyn``).
+    """
+    valid = (s != INVALID) & alive
+    m_s = (p == tid) & in_set(o, mem)
+    if has_dom:
+        m_s = m_s | in_set(p, dom)
+    m_o = (in_set(p, rng) & valid) if has_rng else None
+    return m_s & valid, m_o
+
+
+def member_tiles_plain(s, p, o, alive, tid: int, mem, dom, rng,
+                       has_dom: bool, has_rng: bool, block: int):
+    """Plain version: the masks, then the plain compaction of each."""
+    m_s, m_o = member_masks(s, p, o, alive, tid, mem, dom, rng, has_dom,
+                            has_rng)
+    out = [compact_tiles_plain(m_s, block)]
+    if has_rng:
+        out.append(compact_tiles_plain(m_o, block))
+    return out
+
+
+def member_tiles(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
+                 alive: torch.Tensor, tid: int, mem: torch.Tensor,
+                 dom: torch.Tensor, rng: torch.Tensor, has_dom: bool,
+                 has_rng: bool, block: int):
+    """Fused rewrite type-pattern predicate and compaction in one pass.
+
+    ``s``/``p``/``o``: int32[n] views with one shared stride (the columns
+    of an [N, 3] store); ``alive``: bool[n]; ``mem``/``dom``/``rng``: sorted
+    int32 sets padded with INT32_MAX to a power of two.  Returns a list of
+    one (subject) or, with ``has_rng``, two (subject, object) streams.
+    """
+    _check_block(block)
+    tid = int(tid)
+    if s.device.type == "cpu":
+        return member_tiles_plain(s, p, o, alive, tid, mem, dom, rng,
+                                  has_dom, has_rng, block)
+    build.require_cuda(s, p, o, alive, mem, dom, rng)
+    n = s.shape[0]
+    cols = (s, p, o)
+    if (any(c.dtype != torch.int32 or c.dim() != 1 or c.shape != s.shape
+            or c.stride() != s.stride() for c in cols)):
+        raise ValueError("s, p and o must be int32[n] views with one stride")
+    if alive.dtype != torch.bool or alive.shape != s.shape or not alive.is_contiguous():
+        raise ValueError("alive must be a contiguous bool[n]")
+    for ids in (mem, dom, rng):
+        k = ids.shape[0]
+        if (ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous()
+                or k == 0 or k & (k - 1)):
+            raise ValueError("member sets must be contiguous int32 of a "
+                             "power-of-two length")
+    nb = n_tiles(n, block)
+    streams = 2 if has_rng else 1
+    outs = [(torch.empty(nb * block, dtype=torch.int32, device=s.device),
+             torch.empty(nb, dtype=torch.int32, device=s.device))
+            for _ in range(streams)]
+    local_o, counts_o = outs[-1] if has_rng else (None, None)
+    fn = build.bind("stream_compact", "member_compact",
+                    [_P, _P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                     _L, _I, _I, _P, _P, _P, _P, _P])
+    build.check(fn(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
+                   alive.data_ptr(), tid, mem.data_ptr(), mem.shape[0],
+                   dom.data_ptr(), dom.shape[0], rng.data_ptr(), rng.shape[0],
+                   int(has_dom), int(has_rng), n, block, nb,
+                   outs[0][0].data_ptr(), outs[0][1].data_ptr(),
+                   None if local_o is None else local_o.data_ptr(),
+                   None if counts_o is None else counts_o.data_ptr(),
+                   build.stream(s.device)),
+                "member_compact")
+    member_tiles.launches += 1
+    return outs
+
+
+member_tiles.launches = 0

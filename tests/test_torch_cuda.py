@@ -46,3 +46,49 @@ def test_cuda_kernels_match_plain():
     for args in ((ah, al, rows[:, 1], rows[:, 0]), (rows[:, 1], rows[:, 0], ah, al),
                  (ah[:7], al[:7], rows[:, 1], rows[:, 0])):
         assert torch.equal(t_ms.merge_path(*args), t_ms.merge_path_plain(*args))
+
+
+def _member_set(ids, cap):
+    out = torch.full((cap,), 2**31 - 1, dtype=torch.int32)
+    ids = torch.unique(torch.as_tensor(ids, dtype=torch.int32))
+    out[: ids.shape[0]] = ids
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_member_compact_matches_plain():
+    """K4 (member_tiles) equals its plain version, bit for bit, on every
+    has_dom/has_rng case, empty and all-padding sets, sets larger than the
+    staged part, INVALID rows, and 512/4096-row tiles (needs a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    inv = 2**31 - 1
+    sets = {
+        "small": (_member_set([3, 5, 9], 8), _member_set([1, 7], 8),
+                  _member_set([2, 6, 11], 8)),
+        "all_pad": (_member_set([], 8), _member_set([], 8), _member_set([], 8)),
+        "large": (_member_set(torch.randint(0, 12000, (5000,), generator=g), 8192),
+                  _member_set(torch.randint(0, 40, (30,), generator=g), 32),
+                  _member_set(torch.randint(0, 12000, (3000,), generator=g), 4096)),
+    }
+    for n, block in ((0, 512), (1, 512), (3 * 512 + 17, 512), (70_000, 4096)):
+        spo = torch.randint(0, 12000, (n, 3), generator=g, dtype=torch.int32)
+        spo[:, 1] = torch.randint(0, 14, (n,), generator=g, dtype=torch.int32)
+        if n:
+            spo[torch.rand(n, generator=g) < 0.05] = inv  # INVALID rows
+            spo[torch.rand(n, generator=g) < 0.05, 2] = inv
+        alive = torch.rand(n, generator=g) < 0.9
+        spo, alive = spo.to(dev), alive.to(dev)
+        for mem, dom, rng in sets.values():
+            mem, dom, rng = mem.to(dev), dom.to(dev), rng.to(dev)
+            for has_dom in (False, True):
+                for has_rng in (False, True):
+                    args = (spo[:, 0], spo[:, 1], spo[:, 2], alive, 4, mem,
+                            dom, rng, has_dom, has_rng, block)
+                    got = t_sc.member_tiles(*args)
+                    want = t_sc.member_tiles_plain(*args)
+                    assert len(got) == len(want) == (2 if has_rng else 1)
+                    for (gl, gc), (wl, wc) in zip(got, want):
+                        assert torch.equal(gl, wl) and torch.equal(gc, wc)
