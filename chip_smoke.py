@@ -28,13 +28,25 @@ line:
                 whose fold takes the merge's resident branch; after each
                 step Q1–Q4 in all three modes equal, in term space, a
                 KnowledgeBase built from scratch on the same triples;
-  7. kernels  — each kernel against its plain version on the card at the
+  7. lubm100_kernel_api — the kernels.ops entry points of the last five
+                kernels on LUBM-100's own data: ``interval_filter`` (K9)
+                and ``interval_compact`` (K8) over the lite store's p/o
+                columns with Q1's Professor bounds, held against
+                ``masked_interval_compact`` with every row alive;
+                ``_dual_masked_compact_both`` (K7) over the raw view after
+                a 64-row insert (base + delta), held against K4's streams;
+                ``closure_expand`` (K11) on the full materializer's
+                step-3 inputs, held against closure.py's gather; and
+                ``msc_select`` (K10) on the distinct (instance, concept)
+                candidates grouped by instance, held against the sort-based
+                MSC of materialize.py;
+  8. kernels  — each kernel against its plain version on the card at the
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
                 call's; then the ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
-                before each of phases 3–6 and read just after it (a
-                ``window`` line each), and the line sums the four windows.
+                before each of phases 3–7 and read just after it (a
+                ``window`` line each), and the line sums the five windows.
                 The scratch builds the checks compare against run with the
                 counters set back, so only the main path's launches count.
 
@@ -131,7 +143,10 @@ def phase_build():
 
 
 def _counters():
-    from repro_torch.kernels import merge_sorted, ops, pair_search, stream_compact
+    from repro_torch.kernels import (
+        closure_expand, interval_filter, merge_sorted, msc_select, ops,
+        pair_search, stream_compact,
+    )
 
     return {
         "compact_tiles": stream_compact.compact_tiles,
@@ -140,6 +155,11 @@ def _counters():
         "member_tiles": stream_compact.member_tiles,
         "merge_path_resident": merge_sorted.merge_path_resident,
         "merge_path": merge_sorted.merge_path,
+        "dual_compact_tiles": stream_compact.dual_compact_tiles,
+        "interval_tiles": stream_compact.interval_tiles,
+        "interval_filter": interval_filter.interval_filter,
+        "msc_select": msc_select.msc_select,
+        "closure_expand": closure_expand.closure_expand,
     }, ops.pass_counters
 
 
@@ -501,6 +521,145 @@ def phase_lubm100_live(kb, raw):
     return out["small_delta_cap"]
 
 
+def phase_lubm100_kernel_api(kb):
+    """K7–K11 through their ``kernels.ops`` entry points on LUBM-100 data;
+    returns the inputs the kernel rows time them on."""
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.core.index import pow2_bucket
+    from repro_torch.core.materialize import (
+        INVALID, _search, candidate_types, concept_bounds,
+    )
+    from repro_torch.core.materialize import msc_select as msc_sorted
+    from repro_torch.core.query import _dual_masked_compact_both, _stitch_compact
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.stream_compact import member_masks
+    from repro_torch.rdf.generator import RawDataset, generate_lubm
+
+    t0 = time.perf_counter()
+    out, inputs = {}, {}
+
+    # K9 and K8 over the lite store's p/o columns, with the bounds of Q1's
+    # (?x rdf:type Professor) from the port's TBox intervals
+    lite = kb.lite_spo
+    n = lite.shape[0]
+    p, o = lite[:, 1], lite[:, 2]
+    q1 = kb.engine("litemat")._prepare(PAPER_QUERIES["Q1"])[0][1]
+    params = (q1[1].lo, q1[1].hi, q1[2].lo, q1[2].hi)
+    block = ops.auto_block(n)
+    mask = ops.interval_filter(p, o, params)
+    n_hit = int(mask.sum())
+    cap = pow2_bucket(n_hit)
+    take, ok, total = ops.interval_compact(p, o, params, cap, block=block)
+    with uncounted():
+        w_take, _, w_total = ops.masked_interval_compact(
+            p, o, torch.ones(n, dtype=torch.bool, device=kb.device), params,
+            cap, block=block)
+    require(torch.equal(take, w_take) and int(total) == int(w_total),
+            "interval_compact differs from masked_interval_compact with "
+            "every row alive")
+    require(int(total) == n_hit and torch.equal(
+        take[ok].long(), torch.nonzero(mask).squeeze(1)),
+        "interval_filter's mask differs from interval_compact's take")
+    out["interval"] = {"rows": n, "params": params, "matches": n_hit,
+                       "cap": cap, "block": block}
+    inputs["interval"] = (p, o, params, block)
+
+    # K7 through _dual_masked_compact_both over the raw view: base + the
+    # delta of a 64-row insert, with the member masks of Q1's Professor
+    pool = generate_lubm(1, seed=7, univ_offset=1)
+    kb.insert(RawDataset(*(c[-64:] for c in (pool.s, pool.p, pool.o)),
+                         onto=pool.onto), auto_compact=False)
+    ds = kb.view("rewrite").dev("scan")
+    require(ds.delta is not None, "the 64-row insert left no delta bucket")
+    tid, mem, dom, rng, has_dom, has_rng = _rewrite_sets(
+        kb.engine("rewrite"), PAPER_QUERIES["Q1"])
+    require(has_rng, "Q1's Professor has no range branch")
+    ms_b, mo_b = member_masks(ds.base[:, 0], ds.base[:, 1], ds.base[:, 2],
+                              ds.base_alive, tid, mem, dom, rng, has_dom,
+                              has_rng)
+    ms_d, mo_d = member_masks(ds.delta[:, 0], ds.delta[:, 1], ds.delta[:, 2],
+                              ds.delta_alive, tid, mem, dom, rng, has_dom,
+                              has_rng)
+    cap7 = pow2_bucket(max(int(ms_b.sum() + ms_d.sum()),
+                           int(mo_b.sum() + mo_d.sum())))
+    got = _dual_masked_compact_both(ds, ms_b, mo_b, ms_d, mo_d, cap7)
+    base_n = ds.base.shape[0]
+    with uncounted():
+        k4_b = ops.rewrite_member_compact(
+            ds.base, ds.base_alive, tid, mem, dom, rng, cap7, has_dom,
+            has_rng, block=ops.auto_block(base_n))
+        k4_d = ops.rewrite_member_compact(
+            ds.delta, ds.delta_alive, tid, mem, dom, rng, cap7, has_dom,
+            has_rng, block=ops.auto_block(ds.delta.shape[0]))
+    want = (_stitch_compact(k4_b[0], k4_b[2], k4_d[0], k4_d[2], base_n, cap7),
+            _stitch_compact(k4_b[3], k4_b[5], k4_d[3], k4_d[5], base_n, cap7))
+    for stream, g3, w3 in zip(("subject", "object"), got, want):
+        require(all(torch.equal(g, w) for g, w in zip(g3, w3)),
+                f"_dual_masked_compact_both's {stream} stream differs from "
+                f"K4's")
+    out["dual"] = {"base_rows": base_n, "delta_rows": int(ds.delta.shape[0]),
+                   "subject": int(got[0][2]), "object": int(got[1][2]),
+                   "cap": cap7}
+    inputs["dual"] = (ms_b, mo_b, ops.auto_block(base_n))
+
+    # K11 on the full materializer's step-3 inputs: every candidate type of
+    # the raw store, the sorted concept ids and their ancestor rows
+    dtb = kb.dtb
+    inst, conc, explicit = candidate_types(kb.kb.spo, dtb)
+    cvalid = inst != INVALID
+    c_inst, c_conc = inst[cvalid], conc[cvalid]
+    anc = ops.closure_expand(c_conc, dtb.concept_sorted_ids,
+                             dtb.concept_ancestors)
+    cpos, chit = _search(dtb.concept_sorted_ids, c_conc)
+    require(torch.equal(anc, torch.where(chit[:, None],
+                                         dtb.concept_ancestors[cpos], -1)),
+            "closure_expand differs from closure.py's ancestor gather")
+    out["closure"] = {"candidates": int(c_conc.shape[0]),
+                      "concepts": int(dtb.concept_sorted_ids.shape[0]),
+                      "depth": int(dtb.concept_ancestors.shape[1]),
+                      "known": int(chit.sum())}
+    inputs["closure"] = (c_conc, dtb.concept_sorted_ids, dtb.concept_ancestors)
+    del anc, cpos, chit
+
+    # K10 on the distinct (instance, concept) candidates, grouped by
+    # instance and -1 padded to the largest group
+    pairs = torch.unique((c_inst.long() << 31) | c_conc.long())
+    u_inst, u_conc = (pairs >> 31).int(), (pairs & INVALID).int()
+    first = torch.ones_like(u_inst, dtype=torch.bool)
+    first[1:] = u_inst[1:] != u_inst[:-1]
+    gid = torch.cumsum(first, 0) - 1
+    starts = torch.nonzero(first).squeeze(1)
+    rank = torch.arange(pairs.shape[0], device=kb.device) - starts[gid]
+    G, K = int(starts.shape[0]), int(rank.max()) + 1
+    conc_g = torch.full((G, K), -1, dtype=torch.int32, device=kb.device)
+    bounds_g = torch.full_like(conc_g, -1)
+    conc_g[gid, rank] = u_conc
+    bounds_g[gid, rank] = concept_bounds(dtb, u_conc)[0]
+    keep = ops.msc_select(conc_g, bounds_g)
+    kept = pairs[keep[gid, rank]]
+    inst_s, conc_s, keep_s = msc_sorted(inst, conc, explicit, dtb)[:3]
+    kept_sorted = (inst_s[keep_s].long() << 31) | conc_s[keep_s].long()
+    spills = int((dtb.concept_spill_lo < dtb.concept_spill_hi).sum())
+    out["msc"] = {"groups": G, "K": K, "slots": G * K,
+                  "pairs": int(pairs.shape[0]),
+                  "padding_share": 1 - pairs.shape[0] / (G * K),
+                  "kept": int(kept.shape[0]),
+                  "kept_sorted": int(kept_sorted.shape[0]),
+                  "spill_intervals": spills}
+    if spills == 0:  # without spills both MSCs keep the same pairs
+        require(torch.equal(kept, kept_sorted),
+                f"msc_select keeps {kept.shape[0]} pairs, the sort-based MSC "
+                f"{kept_sorted.shape[0]}")
+    else:  # K10 has no spill test: it may keep more than the sort-based MSC
+        out["msc"]["differs"] = "the pairs kept" if not torch.equal(
+            kept, kept_sorted) else "nothing"
+    inputs["msc"] = (conc_g, bounds_g)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lubm100_kernel_api", **out})
+    return inputs
+
+
 def _profile(fn, runs: int = 5) -> dict:
     """Device busy share and top kernels over ``runs`` calls (torch.profiler).
 
@@ -598,12 +757,15 @@ def _id_set(ids, cap, dev):
     return out
 
 
-def phase_kernels(kb1, kb100, launches, small_cap):
+def phase_kernels(kb1, kb100, launches, small_cap, api):
     import torch
     from repro_torch.core.engine import PAPER_QUERIES
     from repro_torch.core.index import key_cols
     from repro_torch.core.query import QueryEngine
+    from repro_torch.kernels import closure_expand as ce
+    from repro_torch.kernels import interval_filter as itf
     from repro_torch.kernels import merge_sorted as ms
+    from repro_torch.kernels import msc_select as msc
     from repro_torch.kernels import ops
     from repro_torch.kernels import pair_search as ps
     from repro_torch.kernels import stream_compact as sc
@@ -809,13 +971,120 @@ def phase_kernels(kb1, kb100, launches, small_cap):
                             for t in st])
                     edge_checks += 1
 
+    # -- K9 and K8 at the kernel-API phase's shapes: the lite store's p/o
+    # columns with Q1's Professor bounds --
+    ip, io, iprm, iblock = api["interval"]
+    ni = ip.shape[0]
+    nbi = sc.n_tiles(ni, iblock)
+    err = _exact("interval_filter", [itf.interval_filter(ip, io, iprm)],
+                 [itf.interval_filter_plain(ip, io, iprm)])
+    rows.append(_row(
+        "interval_filter", src + "interval_filter.cu",
+        ref + "interval_filter.py:38", launches["interval_filter"], err,
+        lambda: itf.interval_filter(ip, io, iprm),
+        lambda: itf.interval_filter_plain(ip, io, iprm), None, 9 * ni))
+    err = _exact("interval_tiles", sc.interval_tiles(ip, io, iprm, iblock),
+                 sc.interval_tiles_plain(ip, io, iprm, iblock))
+    rows.append(_row(
+        "interval_tiles", src + "stream_compact.cu",
+        ref + "stream_compact.py:226", launches["interval_tiles"], err,
+        lambda: sc.interval_tiles(ip, io, iprm, iblock),
+        lambda: sc.interval_tiles_plain(ip, io, iprm, iblock), None,
+        8 * ni + 4 * nbi * iblock + 4 * nbi))
+    full_range = (-2**31, 2**31 - 1, -2**31, 2**31 - 1)
+    none_range = (iprm[0], iprm[0], iprm[2], iprm[3])
+    for m, blk in ((0, 512), (1, 512), (3 * 512 + 17, 512), (5 * 4096 + 1, 4096)):
+        for prm in (iprm, full_range, none_range):
+            _exact("interval_filter edge", [itf.interval_filter(ip[:m], io[:m], prm)],
+                   [itf.interval_filter_plain(ip[:m], io[:m], prm)])
+            _exact("interval_tiles edge", sc.interval_tiles(ip[:m], io[:m], prm, blk),
+                   sc.interval_tiles_plain(ip[:m], io[:m], prm, blk))
+            edge_checks += 2
+
+    # -- K7 at the raw base's Q1 member masks (the phase's largest call) --
+    ma, mb_, dblock = api["dual"]
+    nd = ma.shape[0]
+    nbd = sc.n_tiles(nd, dblock)
+    def flat(streams):
+        return [t for st in streams for t in st]
+
+    err = _exact("dual_compact_tiles",
+                 flat(sc.dual_compact_tiles(ma, mb_, dblock)),
+                 flat(sc.dual_compact_tiles_plain(ma, mb_, dblock)))
+    rows.append(_row(
+        "dual_compact_tiles", src + "stream_compact.cu",
+        ref + "stream_compact.py:310", launches["dual_compact_tiles"], err,
+        lambda: sc.dual_compact_tiles(ma, mb_, dblock),
+        lambda: sc.dual_compact_tiles_plain(ma, mb_, dblock), None,
+        2 * nd + 2 * (4 * nbd * dblock + 4 * nbd)))
+    for m, blk in ((0, 512), (1, 512), (3 * 512 + 17, 512), (5 * 4096 + 1, 4096)):
+        ones = torch.ones(m, dtype=torch.bool, device=dev)
+        rand = torch.rand(m, generator=gen, device=dev) < 0.5
+        for a, b in ((ones, ~ones), (~ones, ones), (rand, ma[:m]),
+                     (ma[:m], mb_[:m])):
+            _exact("dual_compact_tiles edge",
+                   flat(sc.dual_compact_tiles(a, b, blk)),
+                   flat(sc.dual_compact_tiles_plain(a, b, blk)))
+            edge_checks += 1
+
+    # -- K11 at the full materializer's step-3 inputs --
+    cq, cids, canc = api["closure"]
+    nq, D = cq.shape[0], canc.shape[1]
+    err = _exact("closure_expand", [ce.closure_expand(cq, cids, canc)],
+                 [ce.closure_expand_plain(cq, cids, canc)])
+    rows.append(_row(
+        "closure_expand", src + "closure_expand.cu",
+        ref + "closure_expand.py:53", launches["closure_expand"], err,
+        lambda: ce.closure_expand(cq, cids, canc),
+        lambda: ce.closure_expand_plain(cq, cids, canc), None,
+        4 * nq + 4 * D * nq + 4 * cids.numel() + 4 * canc.numel()))
+    odd = cq[:1000].clone()
+    odd[::3], odd[1::3] = -1, 2**31 - 1  # never concept ids: rows of -1
+    big_ids = torch.arange(0, 3 * 9000, 3, dtype=torch.int32, device=dev)
+    big_anc = torch.randint(-1, 1000, (9000, D), generator=gen, device=dev,
+                            dtype=torch.int32)
+    for q_e, ids_e, anc_e in ((cq[:0], cids, canc), (odd, cids, canc),
+                              (cq[:777], cids[:1], canc[:1]),
+                              (big_ids[:4096] + torch.randint(
+                                  0, 2, (4096,), generator=gen, device=dev,
+                                  dtype=torch.int32), big_ids, big_anc)):
+        _exact("closure_expand edge", [ce.closure_expand(q_e, ids_e, anc_e)],
+               [ce.closure_expand_plain(q_e, ids_e, anc_e)])
+        edge_checks += 1
+
+    # -- K10 at the candidates grouped by instance --
+    conc_g, bounds_g = api["msc"]
+    G, K = conc_g.shape
+    err = _exact("msc_select", [msc.msc_select(conc_g, bounds_g)],
+                 [msc.msc_select_plain(conc_g, bounds_g)])
+    rows.append(_row(
+        "msc_select", src + "msc_select.cu", ref + "msc_select.py:49",
+        launches["msc_select"], err,
+        lambda: msc.msc_select(conc_g, bounds_g),
+        lambda: msc.msc_select_plain(conc_g, bounds_g), None, 9 * G * K))
+    for g_e, k_e in ((0, 4), (1, 1), (1000, 1), (37, 33), (64, 33), (3, 300)):
+        ce_ = torch.randint(-1, 500, (g_e, k_e), generator=gen, device=dev,
+                            dtype=torch.int32)
+        be_ = ce_ + torch.randint(1, 64, (g_e, k_e), generator=gen,
+                                  device=dev, dtype=torch.int32)
+        _exact("msc_select edge", [msc.msc_select(ce_, be_)],
+               [msc.msc_select_plain(ce_, be_)])
+        edge_checks += 1
+    _exact("msc_select edge", [msc.msc_select(conc_g[:1001], bounds_g[:1001])],
+           [msc.msc_select_plain(conc_g[:1001], bounds_g[:1001])])
+    edge_checks += 1
+
     emit({"phase": "kernels", "edge_checks": edge_checks,
           "shapes": {"compact_mask": cap, "compact_answers": n_ans,
                      "scan_rows": n, "scan_block": block,
                      "pair_search_table": T, "pair_search_queries": Q,
                      "merge_a": na, "merge_b": mb,
                      "resident_a": int(pos.shape[0]), "resident_b": small_cap,
-                     "member_rows": nr, "member_block": rblock},
+                     "member_rows": nr, "member_block": rblock,
+                     "interval_rows": ni, "interval_block": iblock,
+                     "dual_rows": nd, "dual_block": dblock,
+                     "closure_queries": nq, "closure_concepts": cids.numel(),
+                     "closure_depth": D, "msc_groups": G, "msc_k": K},
           "member_tiles_one_stream": member[1],
           "store_size_compaction": store_scan, "peak_gib": peak_gib()})
     for r in rows:
@@ -845,7 +1114,10 @@ def main() -> int:
                       need=("compact_tiles", "member_tiles", "pair_search",
                             "merge_path_resident", "merge_path"))
     del raw
-    phase_kernels(kb1, kb100, launches, small_cap)
+    api = drive(launches, phase_lubm100_kernel_api, kb100,
+                need=("dual_compact_tiles", "interval_tiles", "interval_filter",
+                      "msc_select", "closure_expand", "pass/dual_compact"))
+    phase_kernels(kb1, kb100, launches, small_cap, api)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0

@@ -296,6 +296,27 @@ def _masked_compact_both(ds, mask_b, mask_d, cap: int):
     return _stitch_compact(take_b, tb, take_d, td, ds.base.shape[0], cap)
 
 
+def _dual_masked_compact_both(ds, ms_b, mo_b, ms_d, mo_d, cap: int):
+    """Compact both rewrite branches of each source in one dual-mask pass.
+
+    The subject-binding and object-binding masks cover the same rows, so
+    the dual-mask kernel emits both compacted streams per tile.  Returns
+    the two stitched (take, ok, total) triples in combined [base | delta]
+    coordinates.  No query path calls it: rewrite mode compacts through
+    ``ops.rewrite_member_compact``, which evaluates the masks in the same
+    pass.
+    """
+    take_s_b, ok_s_b, ts_b, take_o_b, ok_o_b, to_b = ops.dual_compact_indices(
+        ms_b, mo_b, cap, block=ops.auto_block(ms_b.shape[0]))
+    if ms_d is None:  # delta-free view
+        return (take_s_b, ok_s_b, ts_b), (take_o_b, ok_o_b, to_b)
+    take_s_d, _, ts_d, take_o_d, _, to_d = ops.dual_compact_indices(
+        ms_d, mo_d, cap, block=ops.auto_block(ms_d.shape[0]))
+    base_n = ds.base.shape[0]
+    return (_stitch_compact(take_s_b, ts_b, take_s_d, ts_d, base_n, cap),
+            _stitch_compact(take_o_b, to_b, take_o_d, to_d, base_n, cap))
+
+
 def _rewrite_type_bindings(sig: PatternSig, ds, dyn, cap: int):
     """Rewrite-mode type pattern -> (ok, total, xcol of ?x bindings).
 

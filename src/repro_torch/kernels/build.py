@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stream_compact", "pair_search", "merge_path")
+SOURCES = ("stream_compact", "pair_search", "merge_path", "interval_filter",
+           "msc_select", "closure_expand")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

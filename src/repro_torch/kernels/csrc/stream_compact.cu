@@ -1,15 +1,19 @@
 // Tile-local stable stream compaction for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of src/repro/kernels/stream_compact.py:
+// Replaces five TPU kernels of src/repro/kernels/stream_compact.py:
 //   * stream_compact_pallas           (compaction of a precomputed 0/1 mask)
-//   * masked_interval_compact_pallas  (plo <= p < phi && olo <= o < ohi &&
-//                                      alive, fused with the compaction)
+//   * interval_compact_pallas         (plo <= p < phi && olo <= o < ohi,
+//                                      fused with the compaction)
+//   * masked_interval_compact_pallas  (the same predicate && alive)
 //   * member_compact_pallas           (the rewrite-mode type pattern: the
 //                                      subject stream (p == tid && o in mem)
 //                                      || p in dom and, if has_rng, the
 //                                      object stream p in rng, each && alive
 //                                      && s != INVALID, each compacted)
-// One templated kernel serves all three: the predicate and the number of
+//   * dual_compact_pallas             (two precomputed 0/1 masks over the
+//                                      same rows, each compacted into its
+//                                      own stream in one pass)
+// One templated kernel serves all five: the predicate and the number of
 // output streams are template parameters.
 //
 // Contract (ref_stream_compact), per stream: tile t covers rows
@@ -20,10 +24,10 @@
 // columns.
 //
 // What bounds it on the H100: device memory.  Per row it reads the mask
-// (1 B), or p and o (4 B each, by stride from the [N, 3] store rows) plus
-// alive (1 B), or s, p, o and alive (13 B), and writes one int32 of local
-// output per stream: no arithmetic to speak of.  The member sets' binary
-// searches run in shared memory.
+// (1 B; two masks: 2 B), or p and o (4 B each, by stride from the [N, 3]
+// store rows), plus alive (1 B) in the masked form, or s, p, o and alive
+// (13 B), and writes one int32 of local output per stream: no arithmetic
+// to speak of.  The member sets' binary searches run in shared memory.
 //
 // Design: the TPU body builds a (chunk, chunk) one-hot cube because the TPU
 // has no vector scatter.  Here each row is one thread: a warp ballot and a
@@ -62,19 +66,34 @@ struct MaskPred {
   }
 };
 
-struct MaskedIntervalPred {
+// Two masks over the same rows: stream 0 compacts a, stream 1 compacts b.
+struct DualMaskPred {
+  static constexpr int kStreams = 2;
+  const uint8_t* a;
+  const uint8_t* b;
+  __device__ __forceinline__ void stage(int32_t*) {}
+  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
+    hit[0] = __ldg(a + i) != 0;
+    hit[1] = __ldg(b + i) != 0;
+  }
+};
+
+// plo <= p < phi && olo <= o < ohi, and && alive when Masked.
+template <bool Masked>
+struct IntervalPred {
   static constexpr int kStreams = 1;
   const int32_t* p;
   const int32_t* o;
   int64_t stride;  // int32 elements between consecutive rows of p and o
-  const uint8_t* alive;
+  const uint8_t* alive;  // read only when Masked
   int32_t plo, phi, olo, ohi;
   __device__ __forceinline__ void stage(int32_t*) {}
   __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
     const int32_t pv = __ldg(p + i * stride);
     const int32_t ov = __ldg(o + i * stride);
-    hit[0] = pv >= plo && pv < phi && ov >= olo && ov < ohi &&
-             __ldg(alive + i) != 0;
+    bool m = pv >= plo && pv < phi && ov >= olo && ov < ohi;
+    if constexpr (Masked) m = m && __ldg(alive + i) != 0;
+    hit[0] = m;
   }
 };
 
@@ -242,11 +261,39 @@ extern "C" int masked_interval_compact(const void* p, const void* o,
                                        long long n, int block, int nb,
                                        void* local, void* counts,
                                        void* stream) {
-  MaskedIntervalPred pred{static_cast<const int32_t*>(p),
+  IntervalPred<true> pred{static_cast<const int32_t*>(p),
                           static_cast<const int32_t*>(o), stride,
                           static_cast<const uint8_t*>(alive),
                           plo, phi, olo, ohi};
   Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
+  return launch(pred, n, block, nb, out, 0, stream);
+}
+
+// masked_interval_compact without the alive column.
+extern "C" int interval_compact(const void* p, const void* o, long long stride,
+                                int plo, int phi, int olo, int ohi,
+                                long long n, int block, int nb, void* local,
+                                void* counts, void* stream) {
+  IntervalPred<false> pred{static_cast<const int32_t*>(p),
+                           static_cast<const int32_t*>(o), stride, nullptr,
+                           plo, phi, olo, ohi};
+  Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
+  return launch(pred, n, block, nb, out, 0, stream);
+}
+
+// mask_a, mask_b: uint8[n] (torch.bool); stream a -> local_a/counts_a,
+// stream b -> local_b/counts_b, each int32[nb * block] / int32[nb].
+extern "C" int dual_compact(const void* mask_a, const void* mask_b,
+                            long long n, int block, int nb, void* local_a,
+                            void* counts_a, void* local_b, void* counts_b,
+                            void* stream) {
+  DualMaskPred pred{static_cast<const uint8_t*>(mask_a),
+                    static_cast<const uint8_t*>(mask_b)};
+  Outputs<2> out;
+  out.local[0] = static_cast<int32_t*>(local_a);
+  out.counts[0] = static_cast<int32_t*>(counts_a);
+  out.local[1] = static_cast<int32_t*>(local_b);
+  out.counts[1] = static_cast<int32_t*>(counts_b);
   return launch(pred, n, block, nb, out, 0, stream);
 }
 

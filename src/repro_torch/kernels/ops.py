@@ -3,8 +3,9 @@
 Each wrapper keeps the contract of its namesake in the JAX package's
 ``kernels/ops.py`` — outputs sliced to the input length, INVALID padding,
 totals for overflow accounting — and leaves the kernel launch to the
-kernel module (stream_compact.py, pair_search.py, merge_sorted.py), which
-runs the CUDA kernel on a CUDA tensor and the plain version on a CPU one.
+kernel module (stream_compact.py, pair_search.py, merge_sorted.py,
+interval_filter.py, msc_select.py, closure_expand.py), which runs the CUDA
+kernel on a CUDA tensor and the plain version on a CPU one.
 The helpers with no kernel (``segment_positions``, ``two_source_gather``,
 the tile stitch) are plain torch.
 """
@@ -15,7 +16,10 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.kernels import closure_expand as _ce
+from repro_torch.kernels import interval_filter as _if
 from repro_torch.kernels import merge_sorted as _ms
+from repro_torch.kernels import msc_select as _msc
 from repro_torch.kernels import pair_search as _ps
 from repro_torch.kernels import stream_compact as _sc
 from repro_torch.obs.metrics import REGISTRY
@@ -27,8 +31,10 @@ INVALID = int(np.iinfo(np.int32).max)
 # is traced (once per compiled executable); eager torch has no trace, so
 # here they count wrapper calls — the per-launch counts live on the kernel
 # wrappers themselves (``<wrapper>.launches``).  Every bump is mirrored into
-# the process registry as ``kernels/passes{kind=...}``.
-# ``dual_compact`` stays 0 until K7 (``dual_compact_indices``) is ported.
+# the process registry as ``kernels/passes{kind=...}``.  No query path
+# calls ``dual_compact_indices`` (rewrite mode compacts through
+# ``rewrite_member_compact``), so ``dual_compact`` moves only when a caller
+# uses that entry point directly.
 pass_counters = {"compact": 0, "dual_compact": 0, "member_compact": 0,
                  "merge_resident": 0, "merge_partitioned": 0}
 _PASS_LOCK = threading.Lock()
@@ -58,6 +64,14 @@ _LARGE_N = 1 << 16
 def auto_block(n: int) -> int:
     """Compaction tile size for an n-row store."""
     return LARGE_BLOCK if n >= _LARGE_N else 512
+
+
+# The kernels whose wrappers already keep the reference's contract: the
+# LiteMat triple filter (bool[n]), the grouped MSC keep-mask (bool[G, K])
+# and the ancestor-row expansion (int32[n, D], -1 on a miss).
+interval_filter = _if.interval_filter
+msc_select = _msc.msc_select
+closure_expand = _ce.closure_expand
 
 
 def pair_search(table_hi, table_lo, qhi, qlo):
@@ -189,6 +203,18 @@ def compact_indices(mask, cap: int, block: int = 512):
     return _assemble_compact(local, counts, cap, block)
 
 
+def dual_compact_indices(mask_a, mask_b, cap: int, block: int = 512):
+    """Stable compaction of two bool masks over the same rows in one pass.
+
+    Returns (take_a, ok_a, total_a, take_b, ok_b, total_b), each triple
+    what ``compact_indices`` returns for its mask.
+    """
+    _bump_pass("dual_compact")
+    (la, ca), (lb, cb) = _sc.dual_compact_tiles(mask_a, mask_b, block)
+    return (*_assemble_compact(la, ca, cap, block),
+            *_assemble_compact(lb, cb, cap, block))
+
+
 def rewrite_member_compact(spo, alive, tid: int, mem, dom, rng, cap: int,
                            has_dom: bool, has_rng: bool, block: int = 512):
     """Fused rewrite-mode type-pattern member-set masks + compaction.
@@ -209,6 +235,17 @@ def rewrite_member_compact(spo, alive, tid: int, mem, dom, rng, cap: int,
     return out
 
 
+def interval_compact(p, o, params, cap: int, block: int = 512):
+    """Fused interval predicate + compaction in one pass.
+
+    ``params`` = (plo, phi, olo, ohi) as ints; ``p``/``o`` may be strided
+    column views of the store rows.  Same returns as ``compact_indices``.
+    """
+    _bump_pass("compact")
+    local, counts = _sc.interval_tiles(p, o, params, block)
+    return _assemble_compact(local, counts, cap, block)
+
+
 def masked_interval_compact(p, o, alive, params, cap: int, block: int = 512):
     """Fused interval predicate + liveness mask + compaction in one pass.
 
@@ -221,9 +258,10 @@ def masked_interval_compact(p, o, alive, params, cap: int, block: int = 512):
 
 
 __all__ = [
-    "pair_search", "pair_search_windowed", "compact_indices",
-    "masked_interval_compact", "rewrite_member_compact", "merge_gather",
-    "two_source_gather",
+    "interval_filter", "msc_select", "closure_expand", "pair_search",
+    "pair_search_windowed", "compact_indices", "dual_compact_indices",
+    "interval_compact", "masked_interval_compact", "rewrite_member_compact",
+    "merge_gather", "two_source_gather",
     "segment_positions", "auto_block", "LARGE_BLOCK", "pass_counters",
     "reset_pass_counters",
 ]

@@ -9,14 +9,32 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.closure_expand import closure_expand_plain
+from repro_torch.kernels.interval_filter import interval_filter_plain
 from repro_torch.kernels.merge_sorted import merge_path_plain
+from repro_torch.kernels.msc_select import msc_select_plain
 from repro_torch.kernels.pair_search import pair_search_plain
 from repro_torch.kernels.stream_compact import (
-    compact_tiles_plain, member_tiles_plain,
+    compact_tiles_plain, dual_compact_tiles_plain, member_tiles_plain,
 )
 
 ref_stream_compact = compact_tiles_plain
 ref_pair_search = pair_search_plain
+ref_msc_select = msc_select_plain
+ref_closure_expand = closure_expand_plain
+
+
+def ref_interval_filter(s, p, o, plo, phi, olo, ohi, type_id):
+    """LiteMat triple-pattern mask ``plo <= p < phi and olo <= o < ohi``
+    (the reference's signature: ``s`` and ``type_id`` are not read)."""
+    return interval_filter_plain(p, o, (plo, phi, olo, ohi))
+
+
+def ref_dual_compact(mask_a, mask_b, block: int):
+    """Two independent tile-local compactions of masks over the same rows
+    -> (local_a, counts_a, local_b, counts_b)."""
+    (la, ca), (lb, cb) = dual_compact_tiles_plain(mask_a, mask_b, block)
+    return la, ca, lb, cb
 
 
 def ref_merge_sorted(a_hi, a_lo, b_hi, b_lo):

@@ -1,18 +1,23 @@
 """Tile-local stable stream compaction: the CUDA kernel and its plain version.
 
-Three wrappers share one templated kernel (``csrc/stream_compact.cu``):
+Five wrappers share one templated kernel (``csrc/stream_compact.cu``):
 
   * ``compact_tiles``         — compacts a precomputed bool mask (the port
     of ``stream_compact_pallas``),
-  * ``masked_interval_tiles`` — evaluates ``plo <= p < phi and olo <= o <
-    ohi and alive`` per row and compacts in the same pass (the port of
-    ``masked_interval_compact_pallas``); ``p`` and ``o`` may be strided
-    column views of an [N, 3] store, read in place,
+  * ``interval_tiles``        — evaluates ``plo <= p < phi and olo <= o <
+    ohi`` per row and compacts in the same pass (the port of
+    ``interval_compact_pallas``),
+  * ``masked_interval_tiles`` — the same predicate ``and alive`` (the port
+    of ``masked_interval_compact_pallas``); in both, ``p`` and ``o`` may be
+    strided column views of an [N, 3] store, read in place,
   * ``member_tiles``          — the rewrite-mode type pattern (the port of
     ``member_compact_pallas``): the subject stream ``(p == tid and o in
     mem) or p in dom`` and, with ``has_rng``, the object stream ``p in
     rng``, each ANDed with ``alive and s != INVALID`` and compacted on its
-    own; the sorted id sets are searched inside the kernel.
+    own; the sorted id sets are searched inside the kernel,
+  * ``dual_compact_tiles``    — two precomputed bool masks over the same
+    rows, each compacted into its own stream in one pass (the port of
+    ``dual_compact_pallas``).
 
 Each stream is ``(local int32[nb * block], counts int32[nb])`` with the
 contract of ``ref_stream_compact``: tile t's slice holds the global indices
@@ -31,6 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.interval_filter import (
+    check_columns, interval_filter_plain,
+)
 
 INVALID = int(np.iinfo(np.int32).max)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -85,10 +93,43 @@ def compact_tiles(mask: torch.Tensor, block: int):
 compact_tiles.launches = 0
 
 
+def interval_tiles_plain(p, o, params, block: int):
+    """Plain version: the interval predicate, then the plain compaction."""
+    return compact_tiles_plain(interval_filter_plain(p, o, params), block)
+
+
+def interval_tiles(p: torch.Tensor, o: torch.Tensor, params, block: int):
+    """Fused interval predicate and compaction in one pass.
+
+    ``p``/``o``: int32[n] (strided views allowed, one shared stride);
+    ``params``: four ints (plo, phi, olo, ohi).
+    """
+    _check_block(block)
+    params = [int(v) for v in params]
+    if p.device.type == "cpu":
+        return interval_tiles_plain(p, o, params, block)
+    build.require_cuda(p, o)
+    check_columns(p, o)
+    n = p.shape[0]
+    nb = n_tiles(n, block)
+    local = torch.empty(nb * block, dtype=torch.int32, device=p.device)
+    counts = torch.empty(nb, dtype=torch.int32, device=p.device)
+    fn = build.bind("stream_compact", "interval_compact",
+                    [_P, _P, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
+    build.check(fn(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
+                   block, nb, local.data_ptr(), counts.data_ptr(),
+                   build.stream(p.device)),
+                "interval_compact")
+    interval_tiles.launches += 1
+    return local, counts
+
+
+interval_tiles.launches = 0
+
+
 def interval_mask(p, o, alive, params):
     """The fused scan predicate, row by row (plain version's first half)."""
-    plo, phi, olo, ohi = params
-    return (p >= plo) & (p < phi) & (o >= olo) & (o < ohi) & alive
+    return interval_filter_plain(p, o, params) & alive
 
 
 def masked_interval_tiles_plain(p, o, alive, params, block: int):
@@ -109,9 +150,7 @@ def masked_interval_tiles(p: torch.Tensor, o: torch.Tensor,
         return masked_interval_tiles_plain(p, o, alive, params, block)
     build.require_cuda(p, o, alive)
     n = p.shape[0]
-    if (p.dtype != torch.int32 or o.dtype != torch.int32 or p.dim() != 1
-            or o.shape != p.shape or p.stride() != o.stride()):
-        raise ValueError("p and o must be int32[n] views with one stride")
+    check_columns(p, o)
     if alive.dtype != torch.bool or alive.shape != p.shape or not alive.is_contiguous():
         raise ValueError("alive must be a contiguous bool[n]")
     nb = n_tiles(n, block)
@@ -219,3 +258,39 @@ def member_tiles(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
 
 
 member_tiles.launches = 0
+
+
+def dual_compact_tiles_plain(mask_a, mask_b, block: int):
+    """Plain version: the plain compaction of each mask."""
+    return [compact_tiles_plain(mask_a, block),
+            compact_tiles_plain(mask_b, block)]
+
+
+def dual_compact_tiles(mask_a: torch.Tensor, mask_b: torch.Tensor,
+                       block: int):
+    """Two bool[n] masks over the same rows -> [stream a, stream b]."""
+    _check_block(block)
+    if mask_a.device.type == "cpu":
+        return dual_compact_tiles_plain(mask_a, mask_b, block)
+    build.require_cuda(mask_a, mask_b)
+    if any(m.dtype != torch.bool or m.dim() != 1 or not m.is_contiguous()
+           for m in (mask_a, mask_b)) or mask_b.shape != mask_a.shape:
+        raise ValueError("dual_compact_tiles takes two contiguous bool[n] "
+                         "masks of one length")
+    n = mask_a.shape[0]
+    nb = n_tiles(n, block)
+    outs = [(torch.empty(nb * block, dtype=torch.int32, device=mask_a.device),
+             torch.empty(nb, dtype=torch.int32, device=mask_a.device))
+            for _ in range(2)]
+    fn = build.bind("stream_compact", "dual_compact",
+                    [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P])
+    build.check(fn(mask_a.data_ptr(), mask_b.data_ptr(), n, block, nb,
+                   outs[0][0].data_ptr(), outs[0][1].data_ptr(),
+                   outs[1][0].data_ptr(), outs[1][1].data_ptr(),
+                   build.stream(mask_a.device)),
+                "dual_compact")
+    dual_compact_tiles.launches += 1
+    return outs
+
+
+dual_compact_tiles.launches = 0

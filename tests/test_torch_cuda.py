@@ -10,7 +10,10 @@ test skips itself.
 import pytest
 import torch
 
+from repro_torch.kernels import closure_expand as t_ce
+from repro_torch.kernels import interval_filter as t_if
 from repro_torch.kernels import merge_sorted as t_ms
+from repro_torch.kernels import msc_select as t_msc
 from repro_torch.kernels import pair_search as t_ps
 from repro_torch.kernels import stream_compact as t_sc
 
@@ -92,3 +95,56 @@ def test_cuda_member_compact_matches_plain():
                     assert len(got) == len(want) == (2 if has_rng else 1)
                     for (gl, gc), (wl, wc) in zip(got, want):
                         assert torch.equal(gl, wl) and torch.equal(gc, wc)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_api_matches_plain():
+    """K7-K11 (dual_compact_tiles, interval_tiles, interval_filter,
+    msc_select, closure_expand) equal their plain versions, bit for bit, at
+    n = 0, ragged last tiles, all and none matching, K = 1 and K = 33 (and
+    a group wider than the staged part), C = 1 and a table past the staged
+    8,192 ids, query ids equal to INVALID and -1 (needs a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    inv = 2**31 - 1
+
+    def same(got, want):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+    for n, block in ((0, 512), (1, 512), (3 * 512 + 17, 512), (70_000, 4096)):
+        rows = torch.randint(0, 50, (n, 3), generator=g, dtype=torch.int32).to(dev)
+        p, o = rows[:, 1], rows[:, 2]
+        for prm in ((10, 20, 5, 45), (-2**31, inv, -2**31, inv), (7, 7, 0, 50)):
+            same([t_if.interval_filter(p, o, prm)],
+                 [t_if.interval_filter_plain(p, o, prm)])
+            same(t_sc.interval_tiles(p, o, prm, block),
+                 t_sc.interval_tiles_plain(p, o, prm, block))
+        for da, db in ((0.0, 1.0), (0.3, 0.7), (1.0, 0.0)):
+            ma = (torch.rand(n, generator=g) < da).to(dev)
+            mb = (torch.rand(n, generator=g) < db).to(dev)
+            got = t_sc.dual_compact_tiles(ma, mb, block)
+            want = t_sc.dual_compact_tiles_plain(ma, mb, block)
+            same([t for st in got for t in st], [t for st in want for t in st])
+
+    for G, K in ((0, 4), (1, 1), (37, 16), (130, 8), (64, 33), (3, 300),
+                 (2, 7000)):
+        conc = torch.randint(-1, 500, (G, K), generator=g, dtype=torch.int32)
+        bounds = conc + torch.randint(1, 64, (G, K), generator=g,
+                                      dtype=torch.int32)
+        conc, bounds = conc.to(dev), bounds.to(dev)
+        same([t_msc.msc_select(conc, bounds)],
+             [t_msc.msc_select_plain(conc, bounds)])
+
+    for C, D, n in ((1, 4, 7), (5, 3, 0), (44, 5, 100_000), (9000, 6, 5000)):
+        ids = torch.randperm(1 << 20, generator=g)[:C].sort().values
+        ids = ids.to(torch.int32)
+        anc = torch.randint(-1, 1 << 20, (C, D), generator=g, dtype=torch.int32)
+        q = torch.randint(0, 1 << 20, (n,), generator=g, dtype=torch.int32)
+        q[: n // 2] = ids[torch.randint(0, C, (n // 2,), generator=g)]
+        if n >= 2:
+            q[-2:] = torch.tensor([-1, inv], dtype=torch.int32)
+        args = (q.to(dev), ids.to(dev), anc.to(dev))
+        same([t_ce.closure_expand(*args)], [t_ce.closure_expand_plain(*args)])
