@@ -28,8 +28,11 @@ line:
                 whose fold takes the merge's resident branch; after each
                 step Q1–Q4 in all three modes equal, in term space, a
                 KnowledgeBase built from scratch on the same triples;
-  7. lubm100_kernel_api — the kernels.ops entry points of the last five
-                kernels on LUBM-100's own data: ``interval_filter`` (K9)
+  7. lubm100_kernel_api — the kernels.ops entry points no query path calls,
+                on LUBM-100's own data: ``pair_search`` (K3's single
+                search; the INL step takes its range entry) over the PSO
+                store's 11.7M strided key rows with Q4's INL probes, held
+                against the windowed search; ``interval_filter`` (K9)
                 and ``interval_compact`` (K8) over the lite store's p/o
                 columns with Q1's Professor bounds, held against
                 ``masked_interval_compact`` with every row alive;
@@ -43,7 +46,10 @@ line:
   8. kernels  — each kernel against its plain version on the card at the
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
-                call's; then the ``{"kernels": [...]}`` line with the launch
+                call's: event time, profiler device time and host time per
+                call, and for K1 and K3 the ``kernels.ops``-level call the
+                main path makes (``ops_ms``); then the
+                ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–7 and read just after it (a
                 ``window`` line each), and the line sums the five windows.
@@ -101,6 +107,48 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean host time of one call of ``fn``, in µs: ``time.perf_counter``
+    around ``iters`` calls with no synchronize between them (what the
+    caller's thread pays to enqueue the work)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def device_split(fn, iters: int = 20) -> dict:
+    """Device time per call of ``fn``, in ms, by kernel (or memset) name:
+    torch.profiler's self device time over ``iters`` calls; empty when the
+    profiler reports no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn``: every kernel and memset the calls
+    launch, summed; ``None`` when the profiler reports no device time."""
+    return sum(device_split(fn, iters).values()) or None
+
+
 def _median_ms(fn, runs: int = 5) -> float:
     """Median host time of ``runs`` calls of ``fn``, in ms."""
     times = []
@@ -149,9 +197,10 @@ def _counters():
     )
 
     return {
-        "compact_tiles": stream_compact.compact_tiles,
+        "compact_mask": stream_compact.compact_mask,
         "masked_interval_tiles": stream_compact.masked_interval_tiles,
         "pair_search": pair_search.pair_search,
+        "pair_range": pair_search.pair_range,
         "member_tiles": stream_compact.member_tiles,
         "merge_path_resident": merge_sorted.merge_path_resident,
         "merge_path": merge_sorted.merge_path,
@@ -434,13 +483,13 @@ def phase_lubm100_live(kb, raw):
         torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
-    # the overlay's own kernels: K4 (rewrite's type scan) and K3 (Q4's INL
-    # probe) launch on the delta bucket beside the base, so one query makes
-    # more launches than it made on the base alone
+    # the overlay's own kernels: K4 (rewrite's type scan) and K3's range
+    # entry (Q4's INL probe) launch on the delta bucket beside the base, so
+    # one query makes more launches than it made on the base alone
     probes = {"Q1/rewrite": (lambda: kb.query(PAPER_QUERIES["Q1"],
                                               mode="rewrite"), "member_tiles"),
               "Q4/litemat": (lambda: kb.query(PAPER_QUERIES["Q4"]),
-                             "pair_search")}
+                             "pair_range")}
     on_base = {q: launches_of(fn) for q, (fn, _) in probes.items()}
 
     # 1. insert, then serve each mode (its lazy flush) and query
@@ -526,18 +575,37 @@ def phase_lubm100_kernel_api(kb):
     returns the inputs the kernel rows time them on."""
     import torch
     from repro_torch.core.engine import PAPER_QUERIES
-    from repro_torch.core.index import pow2_bucket
+    from repro_torch.core.index import key_cols, pow2_bucket
     from repro_torch.core.materialize import (
         INVALID, _search, candidate_types, concept_bounds,
     )
     from repro_torch.core.materialize import msc_select as msc_sorted
-    from repro_torch.core.query import _dual_masked_compact_both, _stitch_compact
+    from repro_torch.core.query import (
+        QueryEngine, _dual_masked_compact_both, _stitch_compact,
+    )
     from repro_torch.kernels import ops
     from repro_torch.kernels.stream_compact import member_masks
     from repro_torch.rdf.generator import RawDataset, generate_lubm
 
     t0 = time.perf_counter()
     out, inputs = {}, {}
+
+    # K3's single search (ops.pair_search; the INL step takes the range
+    # entry) on LUBM-100's PSO key planes, 11.7M strided rows, with Q4's
+    # INL probes, held against the windowed search the INL step runs on a
+    # table this large.  A fresh engine plans Q4's INL, as phase_kernels'
+    with uncounted():  # the probes' set-up and the check are not the path
+        fresh = QueryEngine(kb=kb.kb, spo=kb.lite_spo, mode="litemat",
+                            dtb=kb.dtb, view=kb.view("litemat"))
+        qhi, qlo = _inl_probes(fresh, PAPER_QUERIES["Q4"])
+        prim, sec = key_cols("pso")
+        pso = fresh.view.dev("pso").base
+        want = ops.pair_search_windowed(pso[:, prim], pso[:, sec], qhi, qlo)
+    got = ops.pair_search(pso[:, prim], pso[:, sec], qhi, qlo)
+    require(torch.equal(got, want),
+            "pair_search differs from pair_search_windowed on LUBM-100")
+    out["pair_search"] = {"table": int(pso.shape[0]),
+                          "queries": int(qhi.shape[0])}
 
     # K9 and K8 over the lite store's p/o columns, with the bounds of Q1's
     # (?x rdf:type Professor) from the port's TBox intervals
@@ -708,14 +776,45 @@ def _exact(name: str, outs_a, outs_b) -> int:
 
 
 def _row(name, source, replaces, launches, err, kernel, plain, library,
-         bytes_moved):
-    ms = time_ms(kernel)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": time_ms(plain),
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": None if library is None else time_ms(library)}
+         bytes_moved, ops=None, ops_library=None):
+    """One kernel row: ``ms`` (CUDA events around back-to-back calls: the
+    larger of the device time and the wrapper's host cost per call),
+    ``device_ms`` (the profiler's device time per call) and ``host_us``
+    (enqueue time per call), each for the library call too; ``ops_ms``
+    times the ``kernels.ops``-level call the main path makes around the
+    kernel, ``ops_library_ms`` the same function in library calls (K1's
+    plain version is already that: ``torch.nonzero`` and a cut)."""
+    split = device_split(kernel)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": time_ms(kernel), "device_ms": sum(split.values()) or None,
+           "host_us": host_us(kernel), "plain_ms": time_ms(plain),
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "library_ms": None if library is None else time_ms(library)}
+    if len(split) > 1:  # more than one kernel, or a memset beside it
+        row["device_split"] = split
+    if library is not None:
+        row["library_device_ms"] = device_ms(library)
+        row["library_host_us"] = host_us(library)
+    if ops is not None:
+        row["ops_ms"] = time_ms(ops)
+    if ops_library is not None:
+        row["ops_library_ms"] = time_ms(ops_library)
+    return row
+
+
+def _searchsorted_ranges(tkey, qhi, qlo, valid):
+    """``query._inl_ranges``' function in library calls: two
+    ``torch.searchsorted`` over the int64 pair keys (the yardstick of the
+    ops-level K3 time)."""
+    import torch
+    from repro_torch.utils.pair64 import pair_key
+
+    starts = torch.searchsorted(tkey, pair_key(qhi, qlo))
+    ends = torch.searchsorted(tkey, pair_key(qhi, qlo + 1))
+    lens = torch.where(valid, (ends - starts).clamp(min=0), 0)
+    return starts.to(torch.int32), lens.to(torch.int32)
 
 
 def _inl_probes(eng, pats):
@@ -760,8 +859,8 @@ def _id_set(ids, cap, dev):
 def phase_kernels(kb1, kb100, launches, small_cap, api):
     import torch
     from repro_torch.core.engine import PAPER_QUERIES
-    from repro_torch.core.index import key_cols
-    from repro_torch.core.query import QueryEngine
+    from repro_torch.core.index import key_cols, pow2_bucket
+    from repro_torch.core.query import QueryEngine, _inl_ranges
     from repro_torch.kernels import closure_expand as ce
     from repro_torch.kernels import interval_filter as itf
     from repro_torch.kernels import merge_sorted as ms
@@ -779,24 +878,24 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     edge_checks = 0
 
     # -- K1 at its largest main-path call: Q2's DISTINCT keep mask at
-    # LUBM-100 (join_cap slots, 512-row tiles, the answers' rows set).  A
-    # fresh engine plans as the first run of a query does: the KB's own
-    # engine keeps the observations of the live phase, after which it
-    # answers Q4 by a merge join (phase 6 prints the plans) --
+    # LUBM-100 (join_cap slots, the answers' rows set).  A fresh engine
+    # plans as the first run of a query does: the KB's own engine keeps the
+    # observations of the live phase, after which it answers Q4 by a merge
+    # join (phase 6 prints the plans) --
     eng = QueryEngine(kb=kb100.kb, spo=kb100.lite_spo, mode="litemat",
                       dtb=kb100.dtb, view=kb100.view("litemat"))
     ex = eng.explain(PAPER_QUERIES["Q2"])
     cap, n_ans = ex["join_cap"], ex["n_result_rows"]
     keep = torch.arange(cap, device=dev) < n_ans
-    nb1 = sc.n_tiles(cap, 512)
-    err = _exact("compact_tiles", sc.compact_tiles(keep, 512),
-                 sc.compact_tiles_plain(keep, 512))
+    err = _exact("compact_mask", sc.compact_mask(keep, cap),
+                 sc.compact_mask_plain(keep, cap))
     rows.append(_row(
-        "compact_tiles", src + "stream_compact.cu", ref + "stream_compact.py:208",
-        launches["compact_tiles"], err,
-        lambda: sc.compact_tiles(keep, 512),
-        lambda: sc.compact_tiles_plain(keep, 512),
-        lambda: torch.nonzero(keep), cap + 4 * nb1 * 512 + 4 * nb1))
+        "compact_mask", src + "stream_compact.cu", ref + "stream_compact.py:208",
+        launches["compact_mask"], err,
+        lambda: sc.compact_mask(keep, cap),
+        lambda: sc.compact_mask_plain(keep, cap),
+        lambda: torch.nonzero(keep), cap + 5 * cap + 4,
+        ops=lambda: ops.compact_indices(keep, cap)))
 
     # -- K2 at the LUBM-100 lite store (Q1's fused scan), and K1 over a mask
     # of the same store, as a non-fused scan would give it --
@@ -808,14 +907,33 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     q1 = eng._prepare(PAPER_QUERIES["Q1"])[0][1]  # (s, p, o) Terms of Q1
     q2 = eng._prepare(PAPER_QUERIES["Q2"])[0][1]
     mask = (lite[:, 1] >= q2[1].lo) & (lite[:, 1] < q2[1].hi)  # memberOf run
-    _exact("compact_tiles store", sc.compact_tiles(mask, block),
-           sc.compact_tiles_plain(mask, block))
+    scap = pow2_bucket(int(mask.sum()))  # the cap a scan plan would give
+    _exact("compact_mask store", sc.compact_mask(mask, scap),
+           sc.compact_mask_plain(mask, scap))
     store_scan = _row(
-        "compact_tiles (store-size mask)", src + "stream_compact.cu",
+        "compact_mask (store-size mask)", src + "stream_compact.cu",
         ref + "stream_compact.py:208", 0, 0,
-        lambda: sc.compact_tiles(mask, block),
-        lambda: sc.compact_tiles_plain(mask, block),
-        lambda: torch.nonzero(mask), n + out_bytes)
+        lambda: sc.compact_mask(mask, scap),
+        lambda: sc.compact_mask_plain(mask, scap),
+        lambda: torch.nonzero(mask), n + 5 * scap + 4,
+        ops=lambda: ops.compact_indices(mask, scap, block=block))
+    store_scan["cap"] = scap
+    # K1 edges: n = 0, ragged heads of views at offsets 1-15, caps under
+    # the total, every row and no row set, 2**24 + 3 rows (2,049 tiles of 8,192)
+    big = torch.rand((1 << 24) + 18, generator=gen, device=dev) < 0.5
+    k1_edges = [(big[:0], 16), (big[:1], 1), (big[: (1 << 24) + 3], 1 << 24),
+                (big[7: (1 << 24) + 10], 1 << 24),
+                (torch.ones(70_001, dtype=torch.bool, device=dev), 1 << 17),
+                (torch.zeros(70_001, dtype=torch.bool, device=dev), 1 << 17),
+                (mask[1:], scap), (keep[3:], cap)]
+    k1_edges += [(big[k: k + 70_000 + k], 1 << 16) for k in range(1, 16)]
+    k1_edges += [(big[k: k + 5], 8) for k in (3, 11)]  # head and tail meet
+    for m_e, c_e in k1_edges:
+        for c in (c_e, max(c_e // 3, 1)):  # a cap under the total too
+            _exact("compact_mask edge", sc.compact_mask(m_e, c),
+                   sc.compact_mask_plain(m_e, c))
+            edge_checks += 1
+    del big
     params = (q1[1].lo, q1[1].hi, q1[2].lo, q1[2].hi)  # Professor types
     p, o = lite[:, 1], lite[:, 2]
     alive = torch.ones(n, dtype=torch.bool, device=dev)
@@ -833,42 +951,68 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         for am in (torch.ones(m, dtype=torch.bool, device=dev),
                    torch.zeros(m, dtype=torch.bool, device=dev),
                    torch.rand(m, generator=gen, device=dev) < 0.5):
-            _exact("compact_tiles edge", sc.compact_tiles(am, blk),
-                   sc.compact_tiles_plain(am, blk))
             for prm in (params, (-2**31, 2**31 - 1, -2**31, 2**31 - 1)):
                 _exact("masked_interval_tiles edge",
                        sc.masked_interval_tiles(pm, om, am, prm, blk),
                        sc.masked_interval_tiles_plain(pm, om, am, prm, blk))
                 edge_checks += 1
-            edge_checks += 1
 
-    # -- K3 at LUBM-1's PSO store (<= INL_RESIDENT_MAX): Q3's probe batch --
+    # -- K3 at LUBM-1's PSO store (<= INL_RESIDENT_MAX): Q3's probe batch,
+    # through both entries: the range entry the INL step calls (both
+    # bounds) and the single search of ops.pair_search --
     eng1 = kb1.engine("litemat")
     pso = eng1.view.dev("pso").base
     prim, sec = key_cols("pso")
     t_hi, t_lo = pso[:, prim], pso[:, sec]
     qhi, qlo = _inl_probes(eng1, PAPER_QUERIES["Q3"])
-    err = _exact("pair_search", [ps.pair_search(t_hi, t_lo, qhi, qlo)],
-                 [ps.pair_search_plain(t_hi, t_lo, qhi, qlo)])
     T, Q = t_hi.shape[0], qhi.shape[0]
     tkey, qkey = pair_key(t_hi, t_lo), pair_key(qhi, qlo)
+    qkey1 = pair_key(qhi, qlo + 1)
+    qvalid = qhi != 2**31 - 1
+    touched = 8 * min(T, Q * (math.ceil(math.log2(T)) + 1))
+    err = _exact("pair_range", ps.pair_range(t_hi, t_lo, qhi, qlo),
+                 ps.pair_range_plain(t_hi, t_lo, qhi, qlo))
+    rows.append(_row(
+        "pair_range", src + "pair_search.cu", ref + "pair_search.py:51",
+        launches["pair_range"], err,
+        lambda: ps.pair_range(t_hi, t_lo, qhi, qlo),
+        lambda: ps.pair_range_plain(t_hi, t_lo, qhi, qlo),
+        lambda: (torch.searchsorted(tkey, qkey), torch.searchsorted(tkey, qkey1)),
+        16 * Q + touched,
+        ops=lambda: _inl_ranges(pso, prim, sec, qhi, qlo, qvalid),
+        ops_library=lambda: _searchsorted_ranges(tkey, qhi, qlo, qvalid)))
+    err = _exact("pair_search", [ps.pair_search(t_hi, t_lo, qhi, qlo)],
+                 [ps.pair_search_plain(t_hi, t_lo, qhi, qlo)])
     rows.append(_row(
         "pair_search", src + "pair_search.cu", ref + "pair_search.py:51",
         launches["pair_search"], err,
         lambda: ps.pair_search(t_hi, t_lo, qhi, qlo),
         lambda: ps.pair_search_plain(t_hi, t_lo, qhi, qlo),
-        lambda: torch.searchsorted(tkey, qkey),
-        12 * Q + 8 * min(T, Q * (math.ceil(math.log2(T)) + 1))))
-    for th, tl, qh, ql in ((t_hi[:1], t_lo[:1], qhi, qlo),
-                           (t_hi, t_lo, qhi[:1], qlo[:1]),
-                           (t_hi, t_lo, torch.full_like(qhi, -1), qlo),
-                           (t_hi, t_lo, torch.full_like(qhi, 2**31 - 1), qlo)):
-        _exact("pair_search edge", [ps.pair_search(th, tl, qh, ql)],
-               [ps.pair_search_plain(th, tl, qh, ql)])
-        edge_checks += 1
+        lambda: torch.searchsorted(tkey, qkey), 12 * Q + touched))
+    # K3 edges: tables of 1 row, 2,048 rows (all staged), 2,049, LUBM-1's
+    # 137,457 and LUBM-100's 11.7M strided; probes below and above every
+    # key, on table keys (duplicates), and qlo = INT32_MAX (+ 1 wraps)
+    pso100 = eng.view.dev("pso").base
+    on_keys = torch.randint(0, T, (Q,), generator=gen, device=dev)
+    probes = ((qhi, qlo), (qhi[:1], qlo[:1]), (torch.full_like(qhi, -1), qlo),
+              (torch.full_like(qhi, 2**31 - 1), qlo),
+              (t_hi[on_keys].contiguous(), t_lo[on_keys].contiguous()),
+              (qhi, torch.full_like(qlo, 2**31 - 1)),
+              (qhi, torch.full_like(qlo, -2**31)))
+    for rows_t in (pso[:1], pso[:2048], pso[:2049], pso, pso100):
+        th, tl = rows_t[:, prim], rows_t[:, sec]
+        for qh, ql in probes:
+            _exact("pair_range edge", ps.pair_range(th, tl, qh, ql),
+                   ps.pair_range_plain(th, tl, qh, ql))
+            _exact("pair_search edge", [ps.pair_search(th, tl, qh, ql)],
+                   [ps.pair_search_plain(th, tl, qh, ql)])
+            edge_checks += 2
     empty = t_hi[:0]
     require(torch.equal(ops.pair_search(empty, empty, qhi, qlo),
                         torch.zeros_like(qhi)), "empty table must give zeros")
+    require(all(torch.equal(b, torch.zeros_like(qhi))
+                for b in ops.pair_range(empty, empty, qhi, qlo)),
+            "empty table must give zero ranges")
 
     # -- K6 at the LUBM-100 PSO store: Q4's windowed probe run vs the table --
     pso = eng.view.dev("pso").base
@@ -1105,18 +1249,21 @@ def main() -> int:
     phase_build()
     launches = {}
     kb1 = drive(launches, phase_lubm1,
-                need=("compact_tiles", "masked_interval_tiles", "pair_search",
+                need=("compact_mask", "masked_interval_tiles", "pair_range",
                       "member_tiles"))
     kb100, raw = drive(launches, phase_lubm100,
-                       need=("merge_path", "pass/merge_partitioned"))
-    drive(launches, phase_lubm100_rewrite, kb100, need=("member_tiles",))
+                       need=("compact_mask", "merge_path",
+                             "pass/merge_partitioned"))
+    drive(launches, phase_lubm100_rewrite, kb100,
+          need=("compact_mask", "member_tiles"))
     small_cap = drive(launches, phase_lubm100_live, kb100, raw,
-                      need=("compact_tiles", "member_tiles", "pair_search",
+                      need=("compact_mask", "member_tiles", "pair_range",
                             "merge_path_resident", "merge_path"))
     del raw
     api = drive(launches, phase_lubm100_kernel_api, kb100,
-                need=("dual_compact_tiles", "interval_tiles", "interval_filter",
-                      "msc_select", "closure_expand", "pass/dual_compact"))
+                need=("pair_search", "dual_compact_tiles", "interval_tiles",
+                      "interval_filter", "msc_select", "closure_expand",
+                      "pass/dual_compact"))
     phase_kernels(kb1, kb100, launches, small_cap, api)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

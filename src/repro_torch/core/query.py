@@ -424,10 +424,11 @@ def _inl_ranges(rows, prim: int, sec: int, qhi, qlo, valid):
     Invalid probe rows get zero-length ranges.
     """
     t_hi, t_lo = rows[:, prim], rows[:, sec]
-    search = (ops.pair_search_windowed if rows.shape[0] > INL_RESIDENT_MAX
-              else ops.pair_search)
-    starts = search(t_hi, t_lo, qhi, qlo)
-    ends = search(t_hi, t_lo, qhi, qlo + 1)
+    if rows.shape[0] > INL_RESIDENT_MAX:
+        starts = ops.pair_search_windowed(t_hi, t_lo, qhi, qlo)
+        ends = ops.pair_search_windowed(t_hi, t_lo, qhi, qlo + 1)
+    else:  # both bounds in one launch
+        starts, ends = ops.pair_range(t_hi, t_lo, qhi, qlo)
     lens = torch.where(valid, (ends - starts).clamp(min=0), 0)
     return starts, lens
 

@@ -7,6 +7,12 @@ seconds.  Libraries land in ``build/repro_torch/`` at the repository root
 kernel is rebuilt and an unchanged one is reused.  Nothing builds at
 import: the first launch of a kernel builds it, and ``build_all`` builds
 every source at once, one ``nvcc`` per source, all started together.
+
+A wrapper launches through an ``Entry``: its C function, resolved on the
+first call and kept, called with the raw pointer of PyTorch's current
+stream, its returned ``cudaGetLastError`` checked.  The wrappers' own
+argument checks are plain attribute tests, so one launch costs the
+caller a few microseconds of Python.
 """
 from __future__ import annotations
 
@@ -29,7 +35,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-_BOUND: dict = {}  # (source, symbol) -> typed ctypes function
 BUILD_LOG: dict = {}  # source name -> nvcc's output (ptxas register report)
 
 
@@ -93,30 +98,50 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(name: str, symbol: str, argtypes):
-    """C entry point ``symbol`` of ``name``'s library, typed, returning int."""
-    fn = _BOUND.get((name, symbol))
-    if fn is None:
-        fn = getattr(library(name), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _BOUND[(name, symbol)] = fn
-    return fn
+class Entry:
+    """C entry point ``symbol`` of ``csrc/<source>.cu``, returning the launch's
+    ``cudaGetLastError``.  The typed ctypes function is resolved (and the
+    source built) on the first call, then kept; a call raises if the launch
+    reported an error."""
+
+    __slots__ = ("source", "symbol", "argtypes", "_fn")
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source, self.symbol, self.argtypes = source, symbol, list(argtypes)
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = getattr(library(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"CUDA launch of {self.symbol} failed with "
+                               f"error {err}")
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch reported a CUDA error (``cudaGetLastError``)."""
-    if err != 0:
-        raise RuntimeError(f"CUDA launch of {what} failed with error {err}")
+def stream(device: torch.device) -> int:
+    """The raw pointer of PyTorch's current stream on ``device`` (a CUDA
+    device with its index), as kernels launch on it: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object per launch.  A device without an index is the
+    current one."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def stream(device) -> int:
-    """PyTorch's current stream on ``device``, as the pointer kernels launch on."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def require_cuda(*tensors) -> None:
-    """Every argument is a CUDA tensor on one device (else raise)."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"kernel arguments must share one CUDA device, got {devs}")
+def require_cuda(first: torch.Tensor, *rest: torch.Tensor) -> torch.device:
+    """Every argument is a CUDA tensor on one device (else raise); returns it."""
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel arguments must be CUDA tensors, got {dev}")
+    for t in rest:
+        if t.device != dev:
+            raise ValueError(f"kernel arguments must share one CUDA device, "
+                             f"got {dev} and {t.device}")
+    return dev

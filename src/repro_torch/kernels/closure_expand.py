@@ -18,6 +18,8 @@ import torch
 from repro_torch.kernels import build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_EXPAND = build.Entry("closure_expand", "closure_expand",
+                      [_P, _L, _P, _I, _P, _I, _P, _P])
 
 
 def closure_expand_plain(conc, sorted_ids, anc_table):
@@ -33,7 +35,7 @@ def closure_expand(conc: torch.Tensor, sorted_ids: torch.Tensor,
     """int32[n] ids, sorted int32[C], int32[C, D] -> int32[n, D]."""
     if conc.device.type == "cpu":
         return closure_expand_plain(conc, sorted_ids, anc_table)
-    build.require_cuda(conc, sorted_ids, anc_table)
+    dev = build.require_cuda(conc, sorted_ids, anc_table)
     if (any(t.dtype != torch.int32 for t in (conc, sorted_ids, anc_table))
             or conc.dim() != 1 or sorted_ids.dim() != 1
             or anc_table.dim() != 2
@@ -48,15 +50,11 @@ def closure_expand(conc: torch.Tensor, sorted_ids: torch.Tensor,
         raise ValueError(f"closure_expand takes D < 2**23 ancestors, got {d}")
     conc, sorted_ids = conc.contiguous(), sorted_ids.contiguous()
     anc_table = anc_table.contiguous()
-    out = torch.empty((n, d), dtype=torch.int32, device=conc.device)
+    out = torch.empty((n, d), dtype=torch.int32, device=dev)
     if n == 0 or d == 0:
         return out
-    fn = build.bind("closure_expand", "closure_expand",
-                    [_P, _L, _P, _I, _P, _I, _P, _P])
-    build.check(fn(conc.data_ptr(), n, sorted_ids.data_ptr(), c,
-                   anc_table.data_ptr(), d, out.data_ptr(),
-                   build.stream(conc.device)),
-                "closure_expand")
+    _EXPAND(conc.data_ptr(), n, sorted_ids.data_ptr(), c,
+            anc_table.data_ptr(), d, out.data_ptr(), build.stream(dev))
     closure_expand.launches += 1
     return out
 

@@ -1,7 +1,13 @@
-// Tile-local stable stream compaction for Hopper (sm_90a).
+// Stable stream compaction for Hopper (sm_90a): two kernels.
 //
-// Replaces five TPU kernels of src/repro/kernels/stream_compact.py:
-//   * stream_compact_pallas           (compaction of a precomputed 0/1 mask)
+// 1. compact_lookback — the global compaction of a 0/1 mask in one pass,
+//    replacing stream_compact_pallas (src/repro/kernels/stream_compact.py).
+//    It writes ops.compact_indices' contract itself: take[r] = the index of
+//    the r-th set row for r < min(total, cap), 0 behind; ok[r] = r < total;
+//    total = the number of set rows.  Described below, before its code.
+//
+// 2. compact_tiles — tile-local compaction fused with a predicate,
+//    replacing four TPU kernels of the same file:
 //   * interval_compact_pallas         (plo <= p < phi && olo <= o < ohi,
 //                                      fused with the compaction)
 //   * masked_interval_compact_pallas  (the same predicate && alive)
@@ -13,7 +19,7 @@
 //   * dual_compact_pallas             (two precomputed 0/1 masks over the
 //                                      same rows, each compacted into its
 //                                      own stream in one pass)
-// One templated kernel serves all five: the predicate and the number of
+// One templated kernel serves all four: the predicate and the number of
 // output streams are template parameters.
 //
 // Contract (ref_stream_compact), per stream: tile t covers rows
@@ -23,8 +29,8 @@
 // Rows >= n are padding and never match, so the caller passes the unpadded
 // columns.
 //
-// What bounds it on the H100: device memory.  Per row it reads the mask
-// (1 B; two masks: 2 B), or p and o (4 B each, by stride from the [N, 3]
+// What bounds it on the H100: device memory.  Per row it reads two masks
+// (2 B), or p and o (4 B each, by stride from the [N, 3]
 // store rows), plus alive (1 B) in the masked form, or s, p, o and alive
 // (13 B), and writes one int32 of local output per stream: no arithmetic
 // to speak of.  The member sets' binary searches run in shared memory.
@@ -56,15 +62,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int32_t kInvalid = 0x7fffffff;
 constexpr int kStageMax = 2048;  // ids staged per set: 8 KB of shared memory
-
-struct MaskPred {
-  static constexpr int kStreams = 1;
-  const uint8_t* mask;
-  __device__ __forceinline__ void stage(int32_t*) {}
-  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
-    hit[0] = __ldg(mask + i) != 0;
-  }
-};
 
 // Two masks over the same rows: stream 0 compacts a, stream 1 compacts b.
 struct DualMaskPred {
@@ -242,15 +239,236 @@ int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
   return launch(pred, n, block, nb, out, staged * sizeof(int32_t), stream);
 }
 
+// ---------------------------------------------------------------------------
+// compact_lookback: the single-pass global compaction (Merrill & Garland's
+// decoupled look-back, the scheme of CUB's DeviceSelect::Flagged).
+//
+// What bounds it on the H100: device memory — n B of mask read, 4 B of take
+// and 1 B of ok written per output slot (cap of each), 4 B of total.
+//
+// Design: the TPU kernel compacts per tile and leaves the stitch of the
+// tiles to ops.py; on Hopper that stitch cost about eighteen small torch
+// launches after the kernel.  Here one launch writes the final arrays.
+//   * Tiles: 256 threads x 2 chunks x 16 rows = 8,192 rows.  In each
+//     4,096-row chunk a thread reads its 16 rows as one aligned 16-byte
+//     load; the two loads are in flight together.  The per-chunk counts
+//     (each <= 4,096) ride in one 64-bit word of 16-bit fields through one
+//     warp scan (__shfl_up_sync) and one scan of the 8 warp totals in
+//     shared memory.  After the look-back each chunk's set rows are staged
+//     in order in shared memory and written out.  A tile pays a few
+//     microseconds of latency (ticket, load, fences, look-back) however
+//     few rows it holds, so a tile of one chunk is slow on a sparse mask;
+//     a tile of four is slow on a dense run of rows (a store compacted in
+//     POS order holds each predicate's rows together), whose write-out it
+//     serialises.  Two chunks sit between (PERF.md has the times).
+//   * Staging: a thread's 16 rows are consecutive, so on a dense run the
+//     32 lanes of a warp write ranks 16 apart; one padding word after
+//     every 16 (slot r + r / 16) puts them in 32 different banks.
+//   * Order: a tile takes its id from an atomicAdd ticket, not blockIdx, so
+//     a CTA waits only on tiles that running CTAs hold: forward progress.
+//   * Look-back: one 64-bit status word per tile, the flag (aggregate or
+//     inclusive prefix) in the high half and the count in the low half, so
+//     a reader never sees one without the other; it is published after
+//     __threadfence() with a volatile store.  Warp 0 reads the 32 tiles
+//     before its own at a time, waits until each has a flag, and sums the
+//     counts back to the nearest inclusive prefix (a ballot finds it).
+//   * Writes: each chunk's staged rows go out coalesced to its take/ok
+//     slots below cap; the last ticket writes total.
+//     take and ok are zeroed by the entry point beforehand (memsets on the
+//     same stream), so slots past total read 0 / false.
+//   * The predicate is a template parameter (Pred::bits gives the 16 rows'
+//     hits of a thread), so a fused scan predicate is one more struct.
+// Rows are addressed as virtual rows v = row + shift, shift being the mask
+// pointer's offset from a 16-byte boundary (a view such as keep[1:]), so
+// every thread's 16 rows are one aligned load; the segments holding the
+// ragged head (v < shift) and tail (row >= n) load byte by byte.
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kRowsPerThread = 16;
+constexpr int kChunkRows = kScanThreads * kRowsPerThread;  // 4,096
+constexpr int kChunks = 2;
+constexpr int kTileRows = kChunks * kChunkRows;  // 8,192
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kAggregate = 1ull << 32;  // status flags
+constexpr unsigned long long kPrefix = 2ull << 32;
+
+// Four mask bytes -> 4 bits (bit k set iff byte k is non-zero).
+__device__ __forceinline__ unsigned nibble(unsigned w) {
+  const unsigned m = __vcmpne4(w, 0u) & 0x08040201u;
+  return (m | m >> 8 | m >> 16 | m >> 24) & 0xfu;
+}
+
+struct MaskBits {
+  const uint8_t* mask;
+  int64_t n;
+  int shift;  // virtual rows before row 0
+  // Hits of virtual rows v0 .. v0 + 15 (v0 a multiple of 16) as 16 bits.
+  __device__ __forceinline__ unsigned bits(int64_t v0) const {
+    const int64_t r0 = v0 - shift;
+    if (r0 >= 0 && r0 + kRowsPerThread <= n) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(mask + r0));
+      return nibble(w.x) | nibble(w.y) << 4 | nibble(w.z) << 8 |
+             nibble(w.w) << 12;
+    }
+    unsigned b = 0;
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int64_t r = r0 + k;
+      if (r >= 0 && r < n && __ldg(mask + r) != 0) b |= 1u << k;
+    }
+    return b;
+  }
+};
+
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned long long v) {
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(word) = v;
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* word) {
+  return *reinterpret_cast<const volatile unsigned long long*>(word);
+}
+
+// The exclusive prefix of ``tile`` (>= 1), by warp 0: sums the counts of
+// the tiles before it back to the nearest inclusive prefix.
+__device__ unsigned look_back(const unsigned long long* status, int tile,
+                              int lane) {
+  unsigned excl = 0;
+  for (int last = tile - 1;; last -= 32) {
+    const int t = last - lane;
+    unsigned long long s = kPrefix;  // before tile 0: a prefix of 0
+    do {
+      if (t >= 0) s = peek(status + t);
+    } while (!__all_sync(kFull, (s >> 32) != 0));
+    const unsigned pre = __ballot_sync(kFull, (s >> 32) == (kPrefix >> 32));
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    unsigned c = lane <= stop ? (unsigned)s : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(kFull, c, d);
+    excl += c;
+    if (pre) return excl;
+  }
+}
+
+template <typename Pred>
+__global__ void __launch_bounds__(kScanThreads)
+compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
+                 int32_t* __restrict__ take, uint8_t* __restrict__ ok,
+                 int32_t* __restrict__ total,
+                 unsigned long long* __restrict__ status,
+                 unsigned* __restrict__ ticket) {
+  __shared__ int32_t s_rows[kChunkRows + kChunkRows / 16];  // padded
+  __shared__ unsigned long long s_warp[kScanWarps];
+  __shared__ int s_tile;
+  __shared__ unsigned s_excl;
+  if (threadIdx.x == 0) s_tile = (int)atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int tile = s_tile;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base =
+      (int64_t)tile * kTileRows + threadIdx.x * kRowsPerThread;
+  unsigned bits[kChunks];  // the thread's 16 rows of each chunk
+  unsigned long long packed = 0;  // their counts, 16 bits per chunk
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int64_t v0 = base + (int64_t)c * kChunkRows;
+    bits[c] = v0 < nv ? pred.bits(v0) : 0u;
+    packed |= (unsigned long long)__popc(bits[c]) << (16 * c);
+  }
+  unsigned long long incl = packed;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  unsigned long long before = 0, aggp = 0;
+#pragma unroll
+  for (int w = 0; w < kScanWarps; ++w) {
+    const unsigned long long x = s_warp[w];
+    before += w < warp ? x : 0ull;
+    aggp += x;
+  }
+  const unsigned long long mine = before + incl - packed;  // ranks in chunks
+  int agg = 0;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    agg += (int)((aggp >> (16 * c)) & 0xffffu);
+  }
+  if (warp == 0) {
+    unsigned excl = 0;
+    if (tile == 0) {
+      if (lane == 0) publish(status, kPrefix | (unsigned)agg);
+    } else {
+      if (lane == 0) publish(status + tile, kAggregate | (unsigned)agg);
+      excl = look_back(status, tile, lane);
+      if (lane == 0) publish(status + tile, kPrefix | (excl + (unsigned)agg));
+    }
+    if (lane == 0) s_excl = excl;
+  }
+  __syncthreads();
+  int64_t start = s_excl;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    int rank = (int)((mine >> (16 * c)) & 0xffffu);
+    const int64_t r0 = base + (int64_t)c * kChunkRows - pred.shift;
+    unsigned b = bits[c];
+    while (b) {
+      s_rows[rank + (rank >> 4)] = (int32_t)(r0 + __ffs(b) - 1);
+      ++rank;
+      b &= b - 1;
+    }
+    __syncthreads();
+    const int tc = (int)((aggp >> (16 * c)) & 0xffffu);
+    for (int j = threadIdx.x; j < tc; j += kScanThreads) {
+      const int64_t r = start + j;
+      if (r < cap) {
+        take[r] = s_rows[j + (j >> 4)];
+        ok[r] = 1;
+      }
+    }
+    start += tc;
+    __syncthreads();  // s_rows takes the next chunk
+  }
+  if (tile == ntiles - 1 && threadIdx.x == 0) *total = (int32_t)start;
+}
+
+template <typename Pred>
+int launch_lookback(const Pred& pred, long long nv, long long cap,
+                    void* take, void* ok, void* total, void* scratch,
+                    long long scratch_words, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long tiles = nv > 0 ? (nv + kTileRows - 1) / kTileRows : 1;
+  if (tiles + 1 > scratch_words || cap < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(take, 0, (size_t)cap * 4, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(ok, 0, (size_t)cap, st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0, (size_t)(tiles + 1) * 8, st);
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  compact_lookback<Pred><<<(unsigned)tiles, kScanThreads, 0, st>>>(
+      pred, nv, (int)tiles, cap, static_cast<int32_t*>(take),
+      static_cast<uint8_t*>(ok), static_cast<int32_t*>(total), words + 1,
+      reinterpret_cast<unsigned*>(words));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// mask: uint8[n] (torch.bool); local: int32[nb * block]; counts: int32[nb].
-extern "C" int stream_compact_mask(const void* mask, long long n, int block,
-                                   int nb, void* local, void* counts,
-                                   void* stream) {
-  MaskPred pred{static_cast<const uint8_t*>(mask)};
-  Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
-  return launch(pred, n, block, nb, out, 0, stream);
+// mask: uint8[n] (torch.bool), any alignment, n < 2**31; take: int32[cap];
+// ok: uint8[cap]; total: int32[1]; scratch: scratch_words >= ceil((n + 15)
+// / 8192) + 1 int64 words.
+extern "C" int compact_mask(const void* mask, long long n, long long cap,
+                            void* take, void* ok, void* total, void* scratch,
+                            long long scratch_words, void* stream) {
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const int shift = (int)(reinterpret_cast<uintptr_t>(m) & 15);
+  MaskBits pred{m, n, shift};
+  return launch_lookback(pred, n + shift, cap, take, ok, total, scratch,
+                         scratch_words, stream);
 }
 
 // p, o: int32 columns with ``stride`` elements between rows (3 for the

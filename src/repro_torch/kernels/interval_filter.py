@@ -19,6 +19,8 @@ import torch
 from repro_torch.kernels import build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FILTER = build.Entry("interval_filter", "interval_filter",
+                      [_P, _P, _L, _I, _I, _I, _I, _L, _P, _P])
 
 
 def interval_filter_plain(p, o, params):
@@ -39,17 +41,14 @@ def interval_filter(p: torch.Tensor, o: torch.Tensor, params) -> torch.Tensor:
     params = [int(v) for v in params]
     if p.device.type == "cpu":
         return interval_filter_plain(p, o, params)
-    build.require_cuda(p, o)
+    dev = build.require_cuda(p, o)
     check_columns(p, o)
     n = p.shape[0]
-    out = torch.empty(n, dtype=torch.bool, device=p.device)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out
-    fn = build.bind("interval_filter", "interval_filter",
-                    [_P, _P, _L, _I, _I, _I, _I, _L, _P, _P])
-    build.check(fn(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
-                   out.data_ptr(), build.stream(p.device)),
-                "interval_filter")
+    _FILTER(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
+            out.data_ptr(), build.stream(dev))
     interval_filter.launches += 1
     return out
 

@@ -26,6 +26,8 @@ from repro_torch.utils import pair64
 
 DEFAULT_BLOCK = 1024
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_MERGE = build.Entry("merge_path", "merge_path",
+                     [_P, _P, _L, _L, _P, _P, _L, _L, _I, _P, _P, _P])
 
 
 def merge_path_plain(a_hi, a_lo, b_hi, b_lo):
@@ -50,7 +52,7 @@ def _merge(a_hi, a_lo, b_hi, b_lo, block: int):
         raise ValueError("merge_path needs two non-empty runs")
     if a_hi.device.type == "cpu":
         return merge_path_plain(a_hi, a_lo, b_hi, b_lo), False
-    build.require_cuda(a_hi, a_lo, b_hi, b_lo)
+    dev = build.require_cuda(a_hi, a_lo, b_hi, b_lo)
     if any(t.dtype != torch.int32 or t.dim() != 1
            for t in (a_hi, a_lo, b_hi, b_lo)):
         raise ValueError("merge_path takes 1-D int32 key planes")
@@ -60,15 +62,11 @@ def _merge(a_hi, a_lo, b_hi, b_lo, block: int):
     if not 1 <= block <= 1024:
         raise ValueError(f"block must be in [1, 1024], got {block}")
     nb = -(-(n + m) // block)
-    splits = torch.empty(nb + 1, dtype=torch.int64, device=a_hi.device)
-    out = torch.empty(n + m, dtype=torch.int32, device=a_hi.device)
-    fn = build.bind("merge_path", "merge_path",
-                    [_P, _P, _L, _L, _P, _P, _L, _L, _I, _P, _P, _P])
-    build.check(fn(a_hi.data_ptr(), a_lo.data_ptr(), a_hi.stride(0), n,
-                   b_hi.data_ptr(), b_lo.data_ptr(), b_hi.stride(0), m, block,
-                   splits.data_ptr(), out.data_ptr(),
-                   build.stream(a_hi.device)),
-                "merge_path")
+    splits = torch.empty(nb + 1, dtype=torch.int64, device=dev)
+    out = torch.empty(n + m, dtype=torch.int32, device=dev)
+    _MERGE(a_hi.data_ptr(), a_lo.data_ptr(), a_hi.stride(0), n,
+           b_hi.data_ptr(), b_lo.data_ptr(), b_hi.stride(0), m, block,
+           splits.data_ptr(), out.data_ptr(), build.stream(dev))
     return out, True
 
 

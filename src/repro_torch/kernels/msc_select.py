@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_MSC = build.Entry("msc_select", "msc_select", [_P, _P, _L, _I, _P, _P])
 
 
 def msc_select_plain(conc, bounds):
@@ -39,19 +40,17 @@ def msc_select(conc: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     """int32[G, K] ids and bounds (-1 padded) -> bool[G, K] keep mask."""
     if conc.device.type == "cpu":
         return msc_select_plain(conc, bounds)
-    build.require_cuda(conc, bounds)
+    dev = build.require_cuda(conc, bounds)
     if (conc.dtype != torch.int32 or bounds.dtype != torch.int32
             or conc.dim() != 2 or bounds.shape != conc.shape):
         raise ValueError("msc_select takes int32[G, K] conc and bounds")
     conc, bounds = conc.contiguous(), bounds.contiguous()
     g, k = conc.shape
-    keep = torch.empty((g, k), dtype=torch.bool, device=conc.device)
+    keep = torch.empty((g, k), dtype=torch.bool, device=dev)
     if g == 0 or k == 0:
         return keep
-    fn = build.bind("msc_select", "msc_select", [_P, _P, _L, _I, _P, _P])
-    build.check(fn(conc.data_ptr(), bounds.data_ptr(), g, k, keep.data_ptr(),
-                   build.stream(conc.device)),
-                "msc_select")
+    _MSC(conc.data_ptr(), bounds.data_ptr(), g, k, keep.data_ptr(),
+         build.stream(dev))
     msc_select.launches += 1
     return keep
 

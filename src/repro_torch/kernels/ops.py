@@ -7,7 +7,7 @@ kernel module (stream_compact.py, pair_search.py, merge_sorted.py,
 interval_filter.py, msc_select.py, closure_expand.py), which runs the CUDA
 kernel on a CUDA tensor and the plain version on a CPU one.
 The helpers with no kernel (``segment_positions``, ``two_source_gather``,
-the tile stitch) are plain torch.
+the tile stitch of the fused compactions) are plain torch.
 """
 from __future__ import annotations
 
@@ -83,6 +83,19 @@ def pair_search(table_hi, table_lo, qhi, qlo):
     if table_hi.shape[0] == 0 or n == 0:
         return torch.zeros(n, dtype=torch.int32, device=qhi.device)
     return _ps.pair_search(table_hi, table_lo, qhi, qlo)
+
+
+def pair_range(table_hi, table_lo, qhi, qlo):
+    """Both bounds of an INL probe in one launch -> (starts, ends) int32:
+    ``pair_search`` of (qhi, qlo) and of (qhi, qlo + 1), the + 1 wrapping
+    in int32 as torch's add does.  An empty table puts every bound at 0.
+    A launch fusion for ``core/query.py::_inl_ranges``, not part of the
+    reference's ``ops`` surface."""
+    n = qhi.shape[0]
+    if table_hi.shape[0] == 0 or n == 0:
+        zeros = torch.zeros(n, dtype=torch.int32, device=qhi.device)
+        return zeros, zeros
+    return _ps.pair_range(table_hi, table_lo, qhi, qlo)
 
 
 def pair_search_windowed(table_hi, table_lo, qhi, qlo, block: int = 1024):
@@ -196,11 +209,12 @@ def compact_indices(mask, cap: int, block: int = 512):
     """Stable compaction of a bool mask.
 
     Returns (take int32[cap] — indices of the first cap True positions,
-    0-filled past the end; ok bool[cap]; total int32 match count).
+    0-filled past the end; ok bool[cap]; total int32 match count).  One
+    single-pass kernel writes all three; ``block``, the reference's tile
+    size, changes nothing in the result.
     """
     _bump_pass("compact")
-    local, counts = _sc.compact_tiles(mask, block)
-    return _assemble_compact(local, counts, cap, block)
+    return _sc.compact_mask(mask, cap)
 
 
 def dual_compact_indices(mask_a, mask_b, cap: int, block: int = 512):

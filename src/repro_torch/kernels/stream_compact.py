@@ -1,9 +1,14 @@
-"""Tile-local stable stream compaction: the CUDA kernel and its plain version.
+"""Stable stream compaction: the CUDA kernels and their plain versions.
 
-Five wrappers share one templated kernel (``csrc/stream_compact.cu``):
+``compact_mask`` (the port of ``stream_compact_pallas``) compacts a bool
+mask in one pass over the whole input (``csrc/stream_compact.cu``'s
+``compact_lookback``) and returns ``ops.compact_indices``' contract
+itself: ``take int32[cap]`` (the indices of the first ``cap`` set rows, 0
+behind), ``ok bool[cap]`` (slot < total) and ``total`` (int32, 0-d).
 
-  * ``compact_tiles``         — compacts a precomputed bool mask (the port
-    of ``stream_compact_pallas``),
+Four wrappers share the tile-local kernel (``compact_tiles``), each fusing
+a predicate with the compaction:
+
   * ``interval_tiles``        — evaluates ``plo <= p < phi and olo <= o <
     ohi`` per row and compacts in the same pass (the port of
     ``interval_compact_pallas``),
@@ -20,10 +25,11 @@ Five wrappers share one templated kernel (``csrc/stream_compact.cu``):
     ``dual_compact_pallas``).
 
 Each stream is ``(local int32[nb * block], counts int32[nb])`` with the
-contract of ``ref_stream_compact``: tile t's slice holds the global indices
-of its matching rows in ascending order, INVALID behind them.  Rows past
-the input length are padding and never match; an empty input still yields
-one (all-padding) tile.  kernels/ops.py stitches the tiles.
+contract of ``ref_stream_compact`` (``compact_tiles_plain``): tile t's
+slice holds the global indices of its matching rows in ascending order,
+INVALID behind them.  Rows past the input length are padding and never
+match; an empty input still yields one (all-padding) tile.  kernels/ops.py
+stitches the tiles.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel (counted in ``<wrapper>.launches``) or raises.
@@ -42,6 +48,19 @@ from repro_torch.kernels.interval_filter import (
 
 INVALID = int(np.iinfo(np.int32).max)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_COMPACT_MASK = build.Entry("stream_compact", "compact_mask",
+                            [_P, _L, _L, _P, _P, _P, _P, _L, _P])
+_MASKED_INTERVAL = build.Entry(
+    "stream_compact", "masked_interval_compact",
+    [_P, _P, _L, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
+_INTERVAL = build.Entry("stream_compact", "interval_compact",
+                        [_P, _P, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
+_MEMBER = build.Entry("stream_compact", "member_compact",
+                      [_P, _P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                       _L, _I, _I, _P, _P, _P, _P, _P])
+_DUAL = build.Entry("stream_compact", "dual_compact",
+                    [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P])
+_TILE_ROWS = 8192  # compact_lookback's rows per tile
 
 
 def n_tiles(n: int, block: int) -> int:
@@ -64,33 +83,52 @@ def compact_tiles_plain(mask: torch.Tensor, block: int):
     return local.reshape(-1).to(torch.int32), cnt
 
 
+def compact_mask_plain(mask: torch.Tensor, cap: int):
+    """Plain version: ``torch.nonzero``, then a cut to ``cap``."""
+    idx = torch.nonzero(mask).squeeze(1)
+    total = idx.shape[0]
+    take = torch.zeros(cap, dtype=torch.int32, device=mask.device)
+    k = min(cap, total)
+    take[:k] = idx[:k]
+    ok = torch.arange(cap, device=mask.device) < total
+    return take, ok, torch.tensor(total, dtype=torch.int32, device=mask.device)
+
+
+def compact_mask(mask: torch.Tensor, cap: int):
+    """bool[n] -> (take int32[cap], ok bool[cap], total int32 0-d).
+
+    One ctypes call: the entry point zeroes the outputs and the look-back
+    state and launches the kernel; no torch op follows it.  ``mask`` must
+    be contiguous (any alignment: a view such as ``keep[1:]`` is read in
+    place).
+    """
+    if mask.device.type == "cpu":
+        return compact_mask_plain(mask, cap)
+    dev = build.require_cuda(mask)
+    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
+        raise ValueError("compact_mask takes a contiguous 1-D bool mask")
+    n = mask.shape[0]
+    if n >= 1 << 31 or cap < 0:
+        raise ValueError(f"compact_mask takes n < 2**31 rows and cap >= 0, "
+                         f"got n={n}, cap={cap}")
+    take = torch.empty(cap, dtype=torch.int32, device=dev)
+    ok = torch.empty(cap, dtype=torch.bool, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    # the ticket, then one status word per tile (a ragged head adds one)
+    scratch = torch.empty(n // _TILE_ROWS + 3, dtype=torch.int64, device=dev)
+    _COMPACT_MASK(mask.data_ptr(), n, cap, take.data_ptr(), ok.data_ptr(),
+                  total.data_ptr(), scratch.data_ptr(), scratch.shape[0],
+                  build.stream(dev))
+    compact_mask.launches += 1
+    return take, ok, total
+
+
+compact_mask.launches = 0
+
+
 def _check_block(block: int) -> None:
     if block < 1:
         raise ValueError(f"block must be positive, got {block}")
-
-
-def compact_tiles(mask: torch.Tensor, block: int):
-    """bool[n] -> (local int32[nb * block], counts int32[nb])."""
-    _check_block(block)
-    if mask.device.type == "cpu":
-        return compact_tiles_plain(mask, block)
-    build.require_cuda(mask)
-    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
-        raise ValueError("compact_tiles takes a contiguous 1-D bool mask")
-    n = mask.shape[0]
-    nb = n_tiles(n, block)
-    local = torch.empty(nb * block, dtype=torch.int32, device=mask.device)
-    counts = torch.empty(nb, dtype=torch.int32, device=mask.device)
-    fn = build.bind("stream_compact", "stream_compact_mask",
-                    [_P, _L, _I, _I, _P, _P, _P])
-    build.check(fn(mask.data_ptr(), n, block, nb, local.data_ptr(),
-                   counts.data_ptr(), build.stream(mask.device)),
-                "stream_compact_mask")
-    compact_tiles.launches += 1
-    return local, counts
-
-
-compact_tiles.launches = 0
 
 
 def interval_tiles_plain(p, o, params, block: int):
@@ -108,18 +146,14 @@ def interval_tiles(p: torch.Tensor, o: torch.Tensor, params, block: int):
     params = [int(v) for v in params]
     if p.device.type == "cpu":
         return interval_tiles_plain(p, o, params, block)
-    build.require_cuda(p, o)
+    dev = build.require_cuda(p, o)
     check_columns(p, o)
     n = p.shape[0]
     nb = n_tiles(n, block)
-    local = torch.empty(nb * block, dtype=torch.int32, device=p.device)
-    counts = torch.empty(nb, dtype=torch.int32, device=p.device)
-    fn = build.bind("stream_compact", "interval_compact",
-                    [_P, _P, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
-    build.check(fn(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
-                   block, nb, local.data_ptr(), counts.data_ptr(),
-                   build.stream(p.device)),
-                "interval_compact")
+    local = torch.empty(nb * block, dtype=torch.int32, device=dev)
+    counts = torch.empty(nb, dtype=torch.int32, device=dev)
+    _INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n, block, nb,
+              local.data_ptr(), counts.data_ptr(), build.stream(dev))
     interval_tiles.launches += 1
     return local, counts
 
@@ -148,20 +182,17 @@ def masked_interval_tiles(p: torch.Tensor, o: torch.Tensor,
     params = [int(v) for v in params]
     if p.device.type == "cpu":
         return masked_interval_tiles_plain(p, o, alive, params, block)
-    build.require_cuda(p, o, alive)
+    dev = build.require_cuda(p, o, alive)
     n = p.shape[0]
     check_columns(p, o)
     if alive.dtype != torch.bool or alive.shape != p.shape or not alive.is_contiguous():
         raise ValueError("alive must be a contiguous bool[n]")
     nb = n_tiles(n, block)
-    local = torch.empty(nb * block, dtype=torch.int32, device=p.device)
-    counts = torch.empty(nb, dtype=torch.int32, device=p.device)
-    fn = build.bind("stream_compact", "masked_interval_compact",
-                    [_P, _P, _L, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
-    build.check(fn(p.data_ptr(), o.data_ptr(), p.stride(0), alive.data_ptr(),
-                   *params, n, block, nb, local.data_ptr(), counts.data_ptr(),
-                   build.stream(p.device)),
-                "masked_interval_compact")
+    local = torch.empty(nb * block, dtype=torch.int32, device=dev)
+    counts = torch.empty(nb, dtype=torch.int32, device=dev)
+    _MASKED_INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), alive.data_ptr(),
+                     *params, n, block, nb, local.data_ptr(),
+                     counts.data_ptr(), build.stream(dev))
     masked_interval_tiles.launches += 1
     return local, counts
 
@@ -221,7 +252,7 @@ def member_tiles(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
     if s.device.type == "cpu":
         return member_tiles_plain(s, p, o, alive, tid, mem, dom, rng,
                                   has_dom, has_rng, block)
-    build.require_cuda(s, p, o, alive, mem, dom, rng)
+    dev = build.require_cuda(s, p, o, alive, mem, dom, rng)
     n = s.shape[0]
     cols = (s, p, o)
     if (any(c.dtype != torch.int32 or c.dim() != 1 or c.shape != s.shape
@@ -237,22 +268,18 @@ def member_tiles(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
                              "power-of-two length")
     nb = n_tiles(n, block)
     streams = 2 if has_rng else 1
-    outs = [(torch.empty(nb * block, dtype=torch.int32, device=s.device),
-             torch.empty(nb, dtype=torch.int32, device=s.device))
+    outs = [(torch.empty(nb * block, dtype=torch.int32, device=dev),
+             torch.empty(nb, dtype=torch.int32, device=dev))
             for _ in range(streams)]
     local_o, counts_o = outs[-1] if has_rng else (None, None)
-    fn = build.bind("stream_compact", "member_compact",
-                    [_P, _P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-                     _L, _I, _I, _P, _P, _P, _P, _P])
-    build.check(fn(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
-                   alive.data_ptr(), tid, mem.data_ptr(), mem.shape[0],
-                   dom.data_ptr(), dom.shape[0], rng.data_ptr(), rng.shape[0],
-                   int(has_dom), int(has_rng), n, block, nb,
-                   outs[0][0].data_ptr(), outs[0][1].data_ptr(),
-                   None if local_o is None else local_o.data_ptr(),
-                   None if counts_o is None else counts_o.data_ptr(),
-                   build.stream(s.device)),
-                "member_compact")
+    _MEMBER(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
+            alive.data_ptr(), tid, mem.data_ptr(), mem.shape[0],
+            dom.data_ptr(), dom.shape[0], rng.data_ptr(), rng.shape[0],
+            int(has_dom), int(has_rng), n, block, nb,
+            outs[0][0].data_ptr(), outs[0][1].data_ptr(),
+            None if local_o is None else local_o.data_ptr(),
+            None if counts_o is None else counts_o.data_ptr(),
+            build.stream(dev))
     member_tiles.launches += 1
     return outs
 
@@ -272,23 +299,19 @@ def dual_compact_tiles(mask_a: torch.Tensor, mask_b: torch.Tensor,
     _check_block(block)
     if mask_a.device.type == "cpu":
         return dual_compact_tiles_plain(mask_a, mask_b, block)
-    build.require_cuda(mask_a, mask_b)
+    dev = build.require_cuda(mask_a, mask_b)
     if any(m.dtype != torch.bool or m.dim() != 1 or not m.is_contiguous()
            for m in (mask_a, mask_b)) or mask_b.shape != mask_a.shape:
         raise ValueError("dual_compact_tiles takes two contiguous bool[n] "
                          "masks of one length")
     n = mask_a.shape[0]
     nb = n_tiles(n, block)
-    outs = [(torch.empty(nb * block, dtype=torch.int32, device=mask_a.device),
-             torch.empty(nb, dtype=torch.int32, device=mask_a.device))
+    outs = [(torch.empty(nb * block, dtype=torch.int32, device=dev),
+             torch.empty(nb, dtype=torch.int32, device=dev))
             for _ in range(2)]
-    fn = build.bind("stream_compact", "dual_compact",
-                    [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P])
-    build.check(fn(mask_a.data_ptr(), mask_b.data_ptr(), n, block, nb,
-                   outs[0][0].data_ptr(), outs[0][1].data_ptr(),
-                   outs[1][0].data_ptr(), outs[1][1].data_ptr(),
-                   build.stream(mask_a.device)),
-                "dual_compact")
+    _DUAL(mask_a.data_ptr(), mask_b.data_ptr(), n, block, nb,
+          outs[0][0].data_ptr(), outs[0][1].data_ptr(),
+          outs[1][0].data_ptr(), outs[1][1].data_ptr(), build.stream(dev))
     dual_compact_tiles.launches += 1
     return outs
 

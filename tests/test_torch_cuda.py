@@ -10,6 +10,7 @@ test skips itself.
 import pytest
 import torch
 
+from repro_torch.kernels import build as t_build
 from repro_torch.kernels import closure_expand as t_ce
 from repro_torch.kernels import interval_filter as t_if
 from repro_torch.kernels import merge_sorted as t_ms
@@ -27,8 +28,8 @@ def test_cuda_kernels_match_plain():
     g = torch.Generator().manual_seed(0)
     for n, block in ((0, 512), (3 * 512 + 17, 512), (70_000, 4096)):
         mask = (torch.rand(n, generator=g) < 0.3).to(dev)
-        for a, b in zip(t_sc.compact_tiles(mask, block),
-                        t_sc.compact_tiles_plain(mask, block)):
+        for a, b in zip(t_sc.compact_mask(mask, 4096),
+                        t_sc.compact_mask_plain(mask, 4096)):
             assert torch.equal(a, b)
         rows = torch.randint(0, 50, (n, 3), generator=g, dtype=torch.int32).to(dev)
         prm = (10, 20, 5, 45)
@@ -148,3 +149,49 @@ def test_cuda_kernel_api_matches_plain():
             q[-2:] = torch.tensor([-1, inv], dtype=torch.int32)
         args = (q.to(dev), ids.to(dev), anc.to(dev))
         same([t_ce.closure_expand(*args)], [t_ce.closure_expand_plain(*args)])
+
+
+@pytest.mark.cuda
+def test_cuda_compact_mask_and_pair_range_edges():
+    """K1's single-pass compaction and K3's range entry equal their plain
+    versions, bit for bit, at their edges: n = 0, ragged heads from views at
+    offsets 1-15, caps under the total, every row and no row set, 2**24 + 3
+    rows (2,049 look-back tiles of 8,192 rows); tables of 1 row, of 2,048
+    rows (all staged), just over and strided, probes below and above every
+    key, duplicate keys, qlo = INT32_MAX.  Kernels launch on PyTorch's current stream, whose raw
+    pointer ``build.stream`` reads (needs a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    assert t_build.stream(dev) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert t_build.stream(dev) == side.cuda_stream
+    g = torch.Generator().manual_seed(3)
+    inv, imin = 2**31 - 1, -2**31
+
+    def same(got, want):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+    big = (torch.rand((1 << 24) + 3 + 15, generator=g) < 0.5).to(dev)
+    cases = [(big[:0], 16), (big[:1], 1), (big[: (1 << 24) + 3], 1 << 24),
+             (torch.ones(70_001, dtype=torch.bool, device=dev), 1 << 17),
+             (torch.zeros(70_001, dtype=torch.bool, device=dev), 1 << 17)]
+    cases += [(big[k:k + 9000 + k], 4096) for k in range(1, 16)]
+    cases += [(big[k:k + 5], 8) for k in (3, 11)]  # head and tail in one
+    for mask, cap in cases:
+        for c in (cap, max(cap // 3, 1)):  # a cap under the total too
+            same(t_sc.compact_mask(mask, c), t_sc.compact_mask_plain(mask, c))
+
+    rows = torch.randint(0, 40, (300_000, 3), generator=g, dtype=torch.int32)
+    rows = rows[torch.sort(rows[:, 1].long() * 64 + rows[:, 0], stable=True).indices]
+    rows = rows.to(dev)  # duplicate (hi, lo) keys throughout
+    qh = torch.randint(-2, 43, (5000,), generator=g, dtype=torch.int32)
+    ql = torch.randint(-2, 43, (5000,), generator=g, dtype=torch.int32)
+    qh[:50], ql[50:100], ql[100:150] = inv, inv, imin
+    qh, ql = qh.to(dev), ql.to(dev)
+    for T in (1, 2, 2047, 2048, 2049, 137_457, 300_000):
+        args = (rows[:T, 1], rows[:T, 0], qh, ql)
+        same(t_ps.pair_range(*args), t_ps.pair_range_plain(*args))
+        same([t_ps.pair_search(*args)], [t_ps.pair_search_plain(*args)])

@@ -48,7 +48,7 @@ def _padded(a, block, fill):
 @pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
 def test_stream_compact_tiles_match_reference_oracle(n, block, density):
     m = _mask(n, density, seed=n)
-    local, counts = t_sc.compact_tiles(torch.as_tensor(m), block)
+    local, counts = t_sc.compact_tiles_plain(torch.as_tensor(m), block)
     want_l, want_c = j_ref.ref_stream_compact(jnp.asarray(_padded(m, block, False)),
                                               block)
     assert local.dtype == counts.dtype == torch.int32
@@ -71,14 +71,21 @@ def test_stream_compact_tiles_match_reference_oracle(n, block, density):
     _eq(counts, want_c)
 
 
-@pytest.mark.parametrize("n,block,cap", [(0, 512, 256), (1300, 512, 1024),
-                                         (9000, 4096, 256)])
+@pytest.mark.parametrize("n,block,cap", [
+    (0, 512, 256), (1300, 512, 1024), (9000, 4096, 256),
+    # a 4,096-row tile of the single-pass kernel, one row short and over;
+    # 0.3 of the rows are set (~1,229): caps below and above the total
+    (4095, 512, 512), (4095, 4096, 2048), (4096, 4096, 512),
+    (4096, 512, 2048), (4097, 4096, 512), (4097, 512, 2048)])
 def test_compact_indices_match_reference_ops(n, block, cap):
     m = _mask(n, 0.3, seed=7)
     got = t_ops.compact_indices(torch.as_tensor(m), cap, block=block)
     want = j_ops.compact_indices(jnp.asarray(m), cap, block=block)
     assert [g.dtype for g in got] == [torch.int32, torch.bool, torch.int32]
     for g, w in zip(got, want):
+        _eq(g, w)
+    # the kernel's plain version is the contract, whatever the block
+    for g, w in zip(t_sc.compact_mask_plain(torch.as_tensor(m), cap), want):
         _eq(g, w)
 
     rng = np.random.default_rng(n)
@@ -102,21 +109,34 @@ def _sorted_table(rng, T, hi_range=50):
     return hi[order], lo[order]
 
 
-@pytest.mark.parametrize("T,N", [(1, 7), (300, 1300), (5000, 64)])
+@pytest.mark.parametrize("T,N", [(1, 7), (300, 1300), (5000, 64),
+                                 (2048, 300), (2049, 300)])
 def test_pair_search_matches_reference(T, N):
     rng = np.random.default_rng(T)
     hi, lo = _sorted_table(rng, T)
     qh = rng.integers(0, 52, N).astype(np.int32)
     ql = rng.integers(-5, 1005, N).astype(np.int32)
     qh[:3] = I32_MAX  # INVALID probes sort past every real key
+    ql[3:6] = I32_MAX  # qlo + 1 wraps to INT32_MIN in the range entry
+    ql[6] = I32_MIN
     got = t_ops.pair_search(*map(torch.as_tensor, (hi, lo, qh, ql)))
     assert got.dtype == torch.int32
-    _eq(got, j_ops.pair_search(*map(jnp.asarray, (hi, lo, qh, ql))))
+    want = j_ops.pair_search(*map(jnp.asarray, (hi, lo, qh, ql)))
+    _eq(got, want)
+    # the range entry: the two searches an INL probe makes, in one call
+    ql1 = (ql.astype(np.int64) + 1).astype(np.int32)  # wraps like int32 add
+    starts, ends = t_ops.pair_range(*map(torch.as_tensor, (hi, lo, qh, ql)))
+    assert starts.dtype == ends.dtype == torch.int32
+    _eq(starts, want)
+    _eq(ends, j_ops.pair_search(*map(jnp.asarray, (hi, lo, qh, ql1))))
     _eq(t_ref.ref_pair_search(*map(torch.as_tensor, (hi, lo, qh, ql))),
         j_ref.ref_pair_search(*map(jnp.asarray, (hi, lo, qh, ql))))
     empty = torch.zeros(0, dtype=torch.int32)
     _eq(t_ops.pair_search(empty, empty, torch.as_tensor(qh), torch.as_tensor(ql)),
         np.zeros(N, np.int32))
+    for bound in t_ops.pair_range(empty, empty, torch.as_tensor(qh),
+                                  torch.as_tensor(ql)):
+        _eq(bound, np.zeros(N, np.int32))
 
 
 @pytest.mark.parametrize("T,N,block", [(300, 7, 256), (2048, 2048, 512),
@@ -183,10 +203,11 @@ def test_segment_positions_and_two_source_gather_match():
         j_ops.two_source_gather(jnp.asarray(base), None, jnp.asarray(idx)))
 
 
-@pytest.mark.parametrize("resident_max", [1 << 20, 64])
+@pytest.mark.parametrize("resident_max", [1 << 20, 1500, 64])
 def test_inl_ranges_either_side_of_resident_max(resident_max, monkeypatch):
     """INL probes match the reference whether the table takes the resident
-    search or the windowed (merge-path) search."""
+    search (the range entry; 1500 = the table's size, still resident) or the
+    windowed (merge-path) search."""
     monkeypatch.setattr(j_query, "INL_RESIDENT_MAX", resident_max)
     monkeypatch.setattr(t_query, "INL_RESIDENT_MAX", resident_max)
     rng = np.random.default_rng(11)
@@ -197,6 +218,7 @@ def test_inl_ranges_either_side_of_resident_max(resident_max, monkeypatch):
     qlo = np.where(valid, rng.integers(0, 7, 2 * k), 0).astype(np.int32)
     qhi = np.where(valid, np.repeat(np.asarray([2, 4], np.int32), k),
                    I32_MAX).astype(np.int32)
+    qlo[np.flatnonzero(valid)[:2]] = I32_MAX  # a valid probe whose + 1 wraps
     want = j_query._inl_ranges(jnp.asarray(rows), 1, 0, jnp.asarray(qhi),
                                jnp.asarray(qlo), jnp.asarray(valid))
     t_ops.reset_pass_counters()
