@@ -47,8 +47,10 @@ line:
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
                 call's: event time, profiler device time and host time per
-                call, and for K1 and K3 the ``kernels.ops``-level call the
-                main path makes (``ops_ms``); then the
+                call, and for K1–K4 the ``kernels.ops``-level call the
+                main path makes (``ops_ms``; K1's, K2's and K4's must be
+                one launch and, in the profiler, one kernel beside its
+                memsets); then the
                 ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–7 and read just after it (a
@@ -124,23 +126,34 @@ def host_us(fn, iters: int = 20, warmup: int = 3) -> float:
     return dt / iters * 1e6
 
 
-def device_split(fn, iters: int = 20) -> dict:
+def device_split(fn, iters: int = 20, tries: int = 3) -> dict:
     """Device time per call of ``fn``, in ms, by kernel (or memset) name:
     torch.profiler's self device time over ``iters`` calls; empty when the
-    profiler reports no device time."""
+    profiler reports no device time.  The profiler now and then drops
+    device events: a window in which some name ran a number of times that
+    is not a multiple of ``iters`` (or nothing ran) is profiled again, up
+    to ``tries`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:80]: e.self_device_time_total / iters / 1e3
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    split = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        split = {e.key[:80]: e.self_device_time_total / iters / 1e3
+                 for e in events}
+        if events and all(e.count % iters == 0 for e in events):
+            break
+    return split
 
 
 def device_ms(fn, iters: int = 20):
@@ -184,7 +197,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     build.build_all()
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = {name: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
             for name, log in build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(build.SOURCES), "ptxas": regs})
@@ -198,10 +212,10 @@ def _counters():
 
     return {
         "compact_mask": stream_compact.compact_mask,
-        "masked_interval_tiles": stream_compact.masked_interval_tiles,
+        "masked_interval_compact": stream_compact.masked_interval_compact,
         "pair_search": pair_search.pair_search,
         "pair_range": pair_search.pair_range,
-        "member_tiles": stream_compact.member_tiles,
+        "member_compact": stream_compact.member_compact,
         "merge_path_resident": merge_sorted.merge_path_resident,
         "merge_path": merge_sorted.merge_path,
         "dual_compact_tiles": stream_compact.dual_compact_tiles,
@@ -254,6 +268,21 @@ def uncounted():
         fn.launches = saved[name]
     for k in passes:
         passes[k] = saved[f"pass/{k}"]
+
+
+def _one_launch(name: str, fn, counter: str, kind: str) -> dict:
+    """Require that the ``kernels.ops`` call ``fn`` launches ``counter``'s
+    kernel once (one ``kind`` pass) and that the profiler sees that one
+    kernel and its memsets on the device, nothing after it; returns the
+    call's device time by name."""
+    got = launches_of(fn)
+    require(got == {counter: 1, f"pass/{kind}": 1},
+            f"{name}: one ops call launched {got}, not one {counter}")
+    split = device_split(fn)
+    kernels = [k for k in split if not k.startswith("Memset")]
+    require(len(kernels) == 1 and "compact_lookback" in kernels[0],
+            f"{name}: one ops call ran {sorted(split)} on the device")
+    return split
 
 
 def launches_of(fn) -> dict:
@@ -487,7 +516,7 @@ def phase_lubm100_live(kb, raw):
     # entry (Q4's INL probe) launch on the delta bucket beside the base, so
     # one query makes more launches than it made on the base alone
     probes = {"Q1/rewrite": (lambda: kb.query(PAPER_QUERIES["Q1"],
-                                              mode="rewrite"), "member_tiles"),
+                                              mode="rewrite"), "member_compact"),
               "Q4/litemat": (lambda: kb.query(PAPER_QUERIES["Q4"]),
                              "pair_range")}
     on_base = {q: launches_of(fn) for q, (fn, _) in probes.items()}
@@ -847,6 +876,12 @@ def _rewrite_sets(eng, pats):
             sig.extra_caps[3])
 
 
+def _plan_cap(eng, pats) -> int:
+    """The capacity ``eng``'s plan gives the first pattern of ``pats``."""
+    return next(e["cap"] for e in eng.explain(pats, execute=False)["patterns"]
+                if e["pattern_index"] == 0)
+
+
 def _id_set(ids, cap, dev):
     import torch
 
@@ -896,14 +931,14 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         lambda: sc.compact_mask_plain(keep, cap),
         lambda: torch.nonzero(keep), cap + 5 * cap + 4,
         ops=lambda: ops.compact_indices(keep, cap)))
+    _one_launch("compact_indices", lambda: ops.compact_indices(keep, cap),
+                "compact_mask", "compact")
 
     # -- K2 at the LUBM-100 lite store (Q1's fused scan), and K1 over a mask
     # of the same store, as a non-fused scan would give it --
     lite = kb100.lite_spo
     n = lite.shape[0]
     block = ops.auto_block(n)
-    nb = sc.n_tiles(n, block)
-    out_bytes = 4 * nb * block + 4 * nb
     q1 = eng._prepare(PAPER_QUERIES["Q1"])[0][1]  # (s, p, o) Terms of Q1
     q2 = eng._prepare(PAPER_QUERIES["Q2"])[0][1]
     mask = (lite[:, 1] >= q2[1].lo) & (lite[:, 1] < q2[1].hi)  # memberOf run
@@ -937,25 +972,55 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     params = (q1[1].lo, q1[1].hi, q1[2].lo, q1[2].hi)  # Professor types
     p, o = lite[:, 1], lite[:, 2]
     alive = torch.ones(n, dtype=torch.bool, device=dev)
-    err = _exact("masked_interval_tiles",
-                 sc.masked_interval_tiles(p, o, alive, params, block),
-                 sc.masked_interval_tiles_plain(p, o, alive, params, block))
+    seng = QueryEngine(kb=kb100.kb, spo=lite, mode="litemat", dtb=kb100.dtb,
+                       view=kb100.view("litemat"), use_index=False)
+    kcap = _plan_cap(seng, PAPER_QUERIES["Q1"])  # the fused scan's cap
+    err = _exact("masked_interval_compact",
+                 sc.masked_interval_compact(p, o, alive, params, kcap),
+                 sc.masked_interval_compact_plain(p, o, alive, params, kcap))
+
+    def k2_ops():
+        return ops.masked_interval_compact(p, o, alive, params, kcap,
+                                           block=block)
+
     rows.append(_row(
-        "masked_interval_tiles", src + "stream_compact.cu",
-        ref + "stream_compact.py:250", launches["masked_interval_tiles"], err,
-        lambda: sc.masked_interval_tiles(p, o, alive, params, block),
-        lambda: sc.masked_interval_tiles_plain(p, o, alive, params, block),
-        None, 9 * n + out_bytes))
-    for m, blk in ((0, 512), (3 * 512 + 17, 512), (5 * 4096 + 1, 4096)):
-        pm, om = p[:m], o[:m]
-        for am in (torch.ones(m, dtype=torch.bool, device=dev),
-                   torch.zeros(m, dtype=torch.bool, device=dev),
-                   torch.rand(m, generator=gen, device=dev) < 0.5):
-            for prm in (params, (-2**31, 2**31 - 1, -2**31, 2**31 - 1)):
-                _exact("masked_interval_tiles edge",
-                       sc.masked_interval_tiles(pm, om, am, prm, blk),
-                       sc.masked_interval_tiles_plain(pm, om, am, prm, blk))
-                edge_checks += 1
+        "masked_interval_compact", src + "stream_compact.cu",
+        ref + "stream_compact.py:250", launches["masked_interval_compact"],
+        err, lambda: sc.masked_interval_compact(p, o, alive, params, kcap),
+        lambda: sc.masked_interval_compact_plain(p, o, alive, params, kcap),
+        None, 13 * n + 5 * kcap + 4, ops=k2_ops))
+    rows[-1]["cap"] = kcap
+    rows[-1]["ops_device_split"] = _one_launch(
+        "masked_interval_compact", k2_ops, "masked_interval_compact",
+        "compact")
+    # K2 edges: n = 0, one row, ragged tiles, the delta bucket's sizes (a
+    # live tail, dead padding behind it), views at other offsets and
+    # stride-1 columns, aligned or not; all, no and random rows alive;
+    # every row and no row in range; caps at and under the total
+    pc, oc = p.contiguous(), o.contiguous()
+    views = {"store": (p, o), "store+1": (lite[1:, 1], lite[1:, 2]),
+             "store s,o": (lite[:, 0], lite[:, 2]),
+             "stride 1": (pc, oc), "stride 1, +1": (pc[1:], oc[1:]),
+             "stride 1, +3": (pc[3:], oc[3:])}
+    none_range = (params[0], params[0], params[2], params[3])
+    for vname, (pv, ov) in views.items():
+        sizes = (0, 1, 3 * 512 + 17, 5 * 8192 + 1, small_cap, 1 << 17)
+        for m in (sizes if vname == "store" else (0, 5 * 8192 + 1, 1 << 17)):
+            pm, om = pv[:m], ov[:m]
+            live = torch.arange(m, device=dev) < m - m // 7  # a dead tail
+            for am in (torch.ones(m, dtype=torch.bool, device=dev),
+                       torch.zeros(m, dtype=torch.bool, device=dev),
+                       torch.rand(m, generator=gen, device=dev) < 0.5, live):
+                for prm in (params, (-2**31, 2**31 - 1, -2**31, 2**31 - 1),
+                            none_range):
+                    total = int(sc.masked_interval_compact_plain(
+                        pm, om, am, prm, 0)[2])
+                    for c in {pow2_bucket(total), max(total // 3, 1)}:
+                        _exact(f"masked_interval_compact edge ({vname})",
+                               sc.masked_interval_compact(pm, om, am, prm, c),
+                               sc.masked_interval_compact_plain(pm, om, am,
+                                                                prm, c))
+                        edge_checks += 1
 
     # -- K3 at LUBM-1's PSO store (<= INL_RESIDENT_MAX): Q3's probe batch,
     # through both entries: the range entry the INL step calls (both
@@ -1067,53 +1132,81 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     raw_spo = kb100.kb.spo
     nr = raw_spo.shape[0]
     rblock = ops.auto_block(nr)
-    nbr = sc.n_tiles(nr, rblock)
     ralive = torch.ones(nr, dtype=torch.bool, device=dev)
     reng = kb100.engine("rewrite")
     cols = (raw_spo[:, 0], raw_spo[:, 1], raw_spo[:, 2])
+
+    def flat(streams):
+        return [t for st in streams for t in st]
+
     member = {}  # streams -> row
     for streams, pats in ((1, PAPER_QUERIES["Q4"][:1]),  # Chair: domain only
                           (2, PAPER_QUERIES["Q1"])):  # Professor: both
         tid, mem, dom, rng, has_dom, has_rng = _rewrite_sets(reng, pats)
         require(has_rng == (streams == 2),
                 f"{pats[0].o}: unexpected range branch {has_rng}")
-        args = (*cols, ralive, tid, mem, dom, rng, has_dom, has_rng, rblock)
-        err = _exact("member_tiles", [t for st in sc.member_tiles(*args)
-                                      for t in st],
-                     [t for st in sc.member_tiles_plain(*args) for t in st])
+        mcap = _plan_cap(reng, pats)  # the rewrite plan's cap
+        args = (*cols, ralive, tid, mem, dom, rng, has_dom, has_rng, mcap)
+        err = _exact("member_compact", flat(sc.member_compact(*args)),
+                     flat(sc.member_compact_plain(*args)))
         set_bytes = 4 * (mem.numel() + (dom.numel() if has_dom else 0)
                          + (rng.numel() if has_rng else 0))
+        k4_ops = (lambda a=(raw_spo, ralive, tid, mem, dom, rng, mcap,
+                            has_dom, has_rng):
+                  ops.rewrite_member_compact(*a, block=rblock))
         member[streams] = _row(
-            "member_tiles", src + "stream_compact.cu",
-            ref + "stream_compact.py:284", launches["member_tiles"], err,
-            lambda a=args: sc.member_tiles(*a),
-            lambda a=args: sc.member_tiles_plain(*a), None,
-            13 * nr + set_bytes + streams * (4 * nbr * rblock + 4 * nbr))
+            "member_compact", src + "stream_compact.cu",
+            ref + "stream_compact.py:284", launches["member_compact"], err,
+            lambda a=args: sc.member_compact(*a),
+            lambda a=args: sc.member_compact_plain(*a), None,
+            13 * nr + set_bytes + streams * (5 * mcap + 4), ops=k4_ops)
+        member[streams]["cap"] = mcap
+        member[streams]["ops_device_split"] = _one_launch(
+            f"rewrite_member_compact ({streams} streams)", k4_ops,
+            "member_compact", "member_compact")
     rows.append(member[2])
-    # K4 edges: empty store, empty and all-padding sets, INVALID rows, sets
-    # larger than the staged part (2,048 ids), 512- and 4096-row tiles
+    # K4 edges: n = 0, one row, ragged tiles, the delta bucket's sizes;
+    # INVALID subjects and objects, dead rows; empty (all-padding) sets of
+    # 8 and of 1 slot, a full set of 16 (the most compared member by
+    # member), sets of 2,048 ids (all staged, searched) and over (searched
+    # in device memory), rows that hit both branches (one set for dom and
+    # rng); stride-1 columns; caps at and under each stream's total
+    inv = 2**31 - 1
     big = _id_set(torch.randint(0, 2**24, (6000,), generator=gen, device=dev),
                   8192, dev)
     big_p = _id_set(torch.arange(0, 2**20, 3, device=dev), 2**19, dev)
+    staged = _id_set(torch.arange(0, 2**13, 4, device=dev), 2048, dev)
     pad8 = _id_set(torch.zeros(0, device=dev), 8, dev)
-    edge_sets = ((mem, dom, rng), (pad8, pad8, pad8), (big, big_p, big_p),
-                 (mem, pad8, big_p))
-    m = 5 * 4096 + 77
-    espo = raw_spo[:m].clone()
-    espo[::97] = 2**31 - 1  # INVALID rows
-    espo[5::89, 2] = 2**31 - 1  # INVALID objects
-    ealive = torch.rand(m, generator=gen, device=dev) < 0.9
-    for n_e, blk in ((0, 512), (1, 512), (3 * 512 + 17, 512), (m, 4096)):
-        ec = (espo[:n_e, 0], espo[:n_e, 1], espo[:n_e, 2])
-        for es in edge_sets:
-            for hd in (False, True):
-                for hr in (False, True):
-                    args = (*ec, ealive[:n_e], tid, *es, hd, hr, blk)
-                    _exact("member_tiles edge",
-                           [t for st in sc.member_tiles(*args) for t in st],
-                           [t for st in sc.member_tiles_plain(*args)
-                            for t in st])
-                    edge_checks += 1
+    pad1 = _id_set(torch.zeros(0, device=dev), 1, dev)
+    full16 = _id_set(torch.arange(0, 120, 7, device=dev)[:16], 16, dev)
+    both = torch.cat([dom[dom != inv], rng[rng != inv]])
+    both = _id_set(both, pow2_bucket(both.numel()), dev)
+    edge_sets = ((mem, dom, rng), (pad8, pad8, pad8), (pad1, pad1, pad1),
+                 (big, big_p, big_p), (mem, pad8, big_p), (staged, both, both),
+                 (mem, both, both), (full16, full16, full16))
+    m = 5 * 8192 + 77
+    espo = raw_spo[:max(m, small_cap)].clone()
+    espo[::97] = inv  # INVALID rows
+    espo[5::89, 2] = inv  # INVALID objects
+    ealive = torch.rand(espo.shape[0], generator=gen, device=dev) < 0.9
+    e_cols = {"store": (espo[:, 0], espo[:, 1], espo[:, 2]),
+              "stride 1": tuple(espo[:, k].contiguous() for k in range(3))}
+    for cname, ec in e_cols.items():
+        for n_e in ((0, 1, 3 * 512 + 17, small_cap, m) if cname == "store"
+                    else (3 * 512 + 17, m)):
+            for es in edge_sets:
+                for hd in (False, True):
+                    for hr in (False, True):
+                        eargs = (*(c[:n_e] for c in ec), ealive[:n_e], tid,
+                                 *es, hd, hr)
+                        totals = [int(t[2]) for t in
+                                  sc.member_compact_plain(*eargs, 0)]
+                        for c in {pow2_bucket(max(totals)),
+                                  max(min(totals) // 3, 1)}:
+                            _exact(f"member_compact edge ({cname})",
+                                   flat(sc.member_compact(*eargs, c)),
+                                   flat(sc.member_compact_plain(*eargs, c)))
+                            edge_checks += 1
 
     # -- K9 and K8 at the kernel-API phase's shapes: the lite store's p/o
     # columns with Q1's Professor bounds --
@@ -1149,9 +1242,6 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     ma, mb_, dblock = api["dual"]
     nd = ma.shape[0]
     nbd = sc.n_tiles(nd, dblock)
-    def flat(streams):
-        return [t for st in streams for t in st]
-
     err = _exact("dual_compact_tiles",
                  flat(sc.dual_compact_tiles(ma, mb_, dblock)),
                  flat(sc.dual_compact_tiles_plain(ma, mb_, dblock)))
@@ -1220,16 +1310,16 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
 
     emit({"phase": "kernels", "edge_checks": edge_checks,
           "shapes": {"compact_mask": cap, "compact_answers": n_ans,
-                     "scan_rows": n, "scan_block": block,
+                     "scan_rows": n, "scan_cap": kcap,
                      "pair_search_table": T, "pair_search_queries": Q,
                      "merge_a": na, "merge_b": mb,
                      "resident_a": int(pos.shape[0]), "resident_b": small_cap,
-                     "member_rows": nr, "member_block": rblock,
+                     "member_rows": nr,
                      "interval_rows": ni, "interval_block": iblock,
                      "dual_rows": nd, "dual_block": dblock,
                      "closure_queries": nq, "closure_concepts": cids.numel(),
                      "closure_depth": D, "msc_groups": G, "msc_k": K},
-          "member_tiles_one_stream": member[1],
+          "member_compact_one_stream": member[1],
           "store_size_compaction": store_scan, "peak_gib": peak_gib()})
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
@@ -1249,15 +1339,15 @@ def main() -> int:
     phase_build()
     launches = {}
     kb1 = drive(launches, phase_lubm1,
-                need=("compact_mask", "masked_interval_tiles", "pair_range",
-                      "member_tiles"))
+                need=("compact_mask", "masked_interval_compact", "pair_range",
+                      "member_compact"))
     kb100, raw = drive(launches, phase_lubm100,
                        need=("compact_mask", "merge_path",
                              "pass/merge_partitioned"))
     drive(launches, phase_lubm100_rewrite, kb100,
-          need=("compact_mask", "member_tiles"))
+          need=("compact_mask", "member_compact"))
     small_cap = drive(launches, phase_lubm100_live, kb100, raw,
-                      need=("compact_mask", "member_tiles", "pair_range",
+                      need=("compact_mask", "member_compact", "pair_range",
                             "merge_path_resident", "merge_path"))
     del raw
     api = drive(launches, phase_lubm100_kernel_api, kb100,

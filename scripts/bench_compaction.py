@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time the single-pass compactions (K1, K2, K4) at LUBM-100's shapes on
+one GPU, beside two yardsticks of the card's streaming rate over the same
+store: a copy of the lite store and the interval filter (K9), which read
+the same rows and keep nothing.
+
+    python3 scripts/bench_compaction.py [SRC]
+
+``SRC`` (default: the checkout's ``src``) is the directory to import
+``repro_torch`` from, so a copy of the tree with a changed kernel can be
+timed against this one on the same card, one process each.  Prints one
+``name {json}`` line per measurement: ``ms`` (CUDA events per call),
+``split`` (profiler device ms per call by kernel name) and, for K2 and K4,
+the match totals and the cap.  Needs a CUDA device; builds LUBM-100 (seed
+0) first, about 20 s.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    src = sys.argv[1] if len(sys.argv) > 1 else str(ROOT / "src")
+    sys.path[:0] = [src, str(ROOT)]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_compaction: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.core.engine import PAPER_QUERIES, KnowledgeBase
+    from repro_torch.core.query import QueryEngine
+    from repro_torch.kernels import interval_filter as itf
+    from repro_torch.kernels import stream_compact as sc
+    from repro_torch.rdf.generator import generate_lubm
+
+    print(cs.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), "src", sc.__file__, flush=True)
+    kb = KnowledgeBase.build(generate_lubm(100, seed=0))
+    dev = kb.device
+    out = {}
+
+    def timed(name, fn, **extra):
+        out[name] = {"ms": cs.time_ms(fn, 50),
+                     "split": cs.device_split(fn, 50), **extra}
+
+    # the yardsticks: the lite store's rows copied, and filtered (K9)
+    lite = kb.lite_spo
+    n = lite.shape[0]
+    eng = QueryEngine(kb=kb.kb, spo=lite, mode="litemat", dtb=kb.dtb,
+                      view=kb.view("litemat"), use_index=False)
+    q1 = eng._prepare(PAPER_QUERIES["Q1"])[0][1]
+    params = (q1[1].lo, q1[1].hi, q1[2].lo, q1[2].hi)
+    p, o = lite[:, 1], lite[:, 2]
+    timed("store_copy", lambda: lite.clone())
+    timed("k9_filter", lambda: itf.interval_filter(p, o, params))
+
+    # K1 at store size (memberOf's run) and at Q2's distinct
+    q2 = eng._prepare(PAPER_QUERIES["Q2"])[0][1]
+    mask = (lite[:, 1] >= q2[1].lo) & (lite[:, 1] < q2[1].hi)
+    keep = torch.arange(1 << 21, device=dev) < 1_133_328
+    for name, m in (("k1_store", mask), ("k1_distinct", keep)):
+        cs._exact(name, sc.compact_mask(m, 1 << 21),
+                  sc.compact_mask_plain(m, 1 << 21))
+        timed(name, lambda m=m: sc.compact_mask(m, 1 << 21))
+
+    # K2: Q1's fused scan, and the same scan matching no row
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    cap = cs._plan_cap(eng, PAPER_QUERIES["Q1"])
+    none = (params[0], params[0], params[2], params[3])
+    for name, prm in (("k2", params), ("k2_no_match", none)):
+        got = sc.masked_interval_compact(p, o, alive, prm, cap)
+        cs._exact(name, got,
+                  sc.masked_interval_compact_plain(p, o, alive, prm, cap))
+        timed(name, lambda prm=prm: sc.masked_interval_compact(
+            p, o, alive, prm, cap), totals=[int(got[2])], cap=cap)
+
+    # K4 over the raw store: Q4's Chair (one stream), Q1's Professor (two),
+    # and the two-stream call without its writes (cap 0) or its matches
+    # (an all-padding range set)
+    raw = kb.kb.spo
+    cols = (raw[:, 0], raw[:, 1], raw[:, 2])
+    ralive = torch.ones(raw.shape[0], dtype=torch.bool, device=dev)
+    reng = kb.engine("rewrite")
+    pad = cs._id_set(torch.zeros(0, device=dev), 8, dev)
+    cases = []
+    for name, pats in (("k4_one_stream", PAPER_QUERIES["Q4"][:1]),
+                       ("k4_two_streams", PAPER_QUERIES["Q1"])):
+        tid, mem, dom, rng, has_dom, has_rng = cs._rewrite_sets(reng, pats)
+        cases.append((name, (*cols, ralive, tid, mem, dom, rng, has_dom,
+                             has_rng, cs._plan_cap(reng, pats))))
+    cases += [("k4_two_streams_cap0", (*cases[1][1][:-1], 0)),
+              ("k4_two_streams_no_range_match",
+               (*cases[1][1][:7], pad, *cases[1][1][8:]))]
+    for name, args in cases:
+        got = sc.member_compact(*args)
+        cs._exact(name, [t for x in got for t in x],
+                  [t for x in sc.member_compact_plain(*args) for t in x])
+        timed(name, lambda a=args: sc.member_compact(*a),
+              totals=[int(x[2]) for x in got], cap=args[-1])
+    for name, v in out.items():
+        print(name, json.dumps(v), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,96 +1,199 @@
 // Stable stream compaction for Hopper (sm_90a): two kernels.
 //
-// 1. compact_lookback — the global compaction of a 0/1 mask in one pass,
-//    replacing stream_compact_pallas (src/repro/kernels/stream_compact.py).
-//    It writes ops.compact_indices' contract itself: take[r] = the index of
-//    the r-th set row for r < min(total, cap), 0 behind; ok[r] = r < total;
-//    total = the number of set rows.  Described below, before its code.
+// 1. compact_lookback — a global compaction in one pass, fused with a
+//    predicate, that writes ops' contract itself, per output stream:
+//    take[r] = the index of the r-th matching row for r < min(total, cap),
+//    0 behind; ok[r] = r < total; total = the number of matching rows.
+//    Described below, before its code.  Three TPU kernels of
+//    src/repro/kernels/stream_compact.py become its predicates:
+//   * stream_compact_pallas           (MaskBits: a precomputed 0/1 mask)
+//   * masked_interval_compact_pallas  (IntervalPred<true>: plo <= p < phi
+//                                      && olo <= o < ohi && alive)
+//   * member_compact_pallas           (MemberPred: the rewrite-mode type
+//                                      pattern: the subject stream (p ==
+//                                      tid && o in mem) || p in dom and, if
+//                                      has_rng, the object stream p in rng,
+//                                      each && alive && s != INVALID)
 //
 // 2. compact_tiles — tile-local compaction fused with a predicate,
-//    replacing four TPU kernels of the same file:
-//   * interval_compact_pallas         (plo <= p < phi && olo <= o < ohi,
-//                                      fused with the compaction)
-//   * masked_interval_compact_pallas  (the same predicate && alive)
-//   * member_compact_pallas           (the rewrite-mode type pattern: the
-//                                      subject stream (p == tid && o in mem)
-//                                      || p in dom and, if has_rng, the
-//                                      object stream p in rng, each && alive
-//                                      && s != INVALID, each compacted)
+//    replacing two TPU kernels of the same file:
+//   * interval_compact_pallas         (IntervalPred<false>: the interval
+//                                      predicate without alive)
 //   * dual_compact_pallas             (two precomputed 0/1 masks over the
 //                                      same rows, each compacted into its
 //                                      own stream in one pass)
-// One templated kernel serves all four: the predicate and the number of
-// output streams are template parameters.
+//    Contract (ref_stream_compact), per stream: tile t covers rows
+//    [t*block, (t+1)*block).  Its output slice local[t*block : (t+1)*block]
+//    holds the global indices of the tile's matching rows in ascending
+//    order, INVALID (INT32_MAX) behind them, and counts[t] is the tile's
+//    match count; kernels/ops.py stitches the tiles.  Rows >= n are padding
+//    and never match, so the caller passes the unpadded columns.
 //
-// Contract (ref_stream_compact), per stream: tile t covers rows
-// [t*block, (t+1)*block).  Its output slice local[t*block : (t+1)*block]
-// holds the global indices of the tile's matching rows in ascending order,
-// INVALID (INT32_MAX) behind them, and counts[t] is the tile's match count.
-// Rows >= n are padding and never match, so the caller passes the unpadded
-// columns.
+// What bounds both on the H100: device memory.  Per row they read a mask
+// (1 B per stream), or p and o (by stride from the [N, 3] store rows, so
+// every 32-byte sector of the rows: 12 B) plus alive (1 B), or s, p, o and
+// alive (13 B); no arithmetic to speak of.  The member sets are read from
+// shared memory.
 //
-// What bounds it on the H100: device memory.  Per row it reads two masks
-// (2 B), or p and o (4 B each, by stride from the [N, 3]
-// store rows), plus alive (1 B) in the masked form, or s, p, o and alive
-// (13 B), and writes one int32 of local output per stream: no arithmetic
-// to speak of.  The member sets' binary searches run in shared memory.
-//
-// Design: the TPU body builds a (chunk, chunk) one-hot cube because the TPU
-// has no vector scatter.  Here each row is one thread: a warp ballot and a
-// popcount give the row's rank inside its warp, a scan of the 16 warp
-// counts in shared memory gives the warp's offset inside the 512-row chunk,
-// and a running offset carries the chunks of a tile (4096-row tiles take
-// eight).  Each matching row then writes its index straight to its slot;
-// the tile ends with one pass writing INVALID behind the matches.  Reads of
-// consecutive rows by consecutive threads coalesce; s, p and o are read in
-// place from the store rows so a scan never copies a column.
+// compact_tiles' design: the TPU body builds a (chunk, chunk) one-hot cube
+// because the TPU has no vector scatter.  Here each row is one thread: a
+// warp ballot and a popcount give the row's rank inside its warp, a scan of
+// the 16 warp counts in shared memory gives the warp's offset inside the
+// 512-row chunk, and a running offset carries the chunks of a tile.  Each
+// matching row then writes its index straight to its slot; the tile ends
+// with one pass writing INVALID behind the matches.
 //
 // The member sets of K4 are sorted and INT32_MAX-padded to a power of two
 // (query.py::_pad_set).  Each CTA stages a set of at most kStageMax ids into
 // shared memory once, as the TPU keeps them resident in VMEM; a larger set
 // (a deep ontology's concept with thousands of subsumees) is searched where
-// it lies, in device memory through the read-only cache.  A search is the
-// lower bound of the value (log2(K) + 1 steps), as _in_set_tile's is: the
-// value is a member iff the slot it lands on holds it and it is not INVALID,
+// it lies, in device memory.  IdSet::contains_batch keeps _in_set_tile's
+// contract: a value is a member iff the set holds it and it is not INVALID,
 // so an all-padding set matches nothing and INVALID never matches a pad.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;  // compact_tiles' CTA
 constexpr int kWarps = kThreads / 32;
 constexpr int32_t kInvalid = 0x7fffffff;
 constexpr int kStageMax = 2048;  // ids staged per set: 8 KB of shared memory
+constexpr int kLinearMax = 16;  // sets up to this many slots: no search
+constexpr unsigned kFull = 0xffffffffu;
+
+// compact_lookback's tile (described before its code): 256 threads x 2
+// chunks x 16 rows, a warp's 16-row groups covering 512 consecutive rows.
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kRowsPerThread = 16;
+constexpr int kWarpRows = 32 * kRowsPerThread;  // 512
+constexpr int kChunkRows = kScanThreads * kRowsPerThread;  // 4,096
+constexpr int kChunks = 2;
+constexpr int kTileRows = kChunks * kChunkRows;  // 8,192
+constexpr int kBatch = 8;  // warp_bits' steps in flight at once
+
+// Four mask bytes -> 4 bits (bit k set iff byte k is non-zero).
+__device__ __forceinline__ unsigned nibble(unsigned w) {
+  const unsigned m = __vcmpne4(w, 0u) & 0x08040201u;
+  return (m | m >> 8 | m >> 16 | m >> 24) & 0xfu;
+}
+
+// Bits of rows r0 .. r0 + 15 (r0 >= 0) of a 0/1 byte column that are set
+// and < n: one 16-byte load where the rows are whole and aligned, else
+// byte by byte.
+__device__ __forceinline__ unsigned mask16(const uint8_t* m, int64_t r0,
+                                           int64_t n) {
+  const uint8_t* a = m + r0;
+  if (r0 + kRowsPerThread <= n && (reinterpret_cast<uintptr_t>(a) & 15) == 0) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(a));
+    return nibble(w.x) | nibble(w.y) << 4 | nibble(w.z) << 8 |
+           nibble(w.w) << 12;
+  }
+  unsigned h = 0;
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    if (r0 + k < n && __ldg(a + k) != 0) h |= 1u << k;
+  }
+  return h;
+}
+
+// The hits of a lane's 16 rows v0 .. v0 + 15, per stream, for a predicate
+// over strided columns ANDed with alive; called by all 32 lanes of a warp
+// together, v0 being the warp's first row w0 (< n) plus 16 * lane.  Read
+// row by row, a lane's 16 rows would put the warp's 32 loads of one
+// instruction into 32 separate 192-byte spans of an [N, 3] store.  Instead,
+// in step k the warp reads rows w0 + 32k .. w0 + 32k + 31, one per lane (a
+// coalesced load of each column).  The steps go in batches of kBatch: the
+// loads of a batch are issued before any is used, so a warp keeps kBatch
+// in flight per column (all 16 at once took more registers and ran slower
+// on K2, PERF.md).  The predicate tests a batch's rows
+// together (Pred::test: bit k for the batch's step k), one ballot per step
+// and stream gathers the warp's hits, and lane l keeps the half-word of
+// step l / 2 that holds its own rows 16l .. 16l + 15.  alive is read for
+// the lane's own rows (mask16), which also drops rows >= n; a row past the
+// end reads row n - 1 in its step.
+template <typename Pred>
+__device__ __forceinline__ void warp_bits(const Pred& pred, int64_t v0,
+                                          unsigned* b) {
+  constexpr int NS = Pred::kStreams;
+  const int lane = threadIdx.x & 31;
+  const int64_t w0 = v0 - kRowsPerThread * lane;
+#pragma unroll
+  for (int st = 0; st < NS; ++st) b[st] = 0u;
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; h += kBatch) {
+    typename Pred::Rows rows;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int64_t i = w0 + 32 * (h + k) + lane;
+      pred.load(rows, k, i < pred.n ? i : pred.n - 1);
+    }
+    unsigned hits[NS];
+    pred.test(rows, hits);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        const unsigned w = __ballot_sync(kFull, (hits[st] >> k) & 1u);
+        if ((lane >> 1) == h + k) b[st] = (lane & 1) ? w >> 16 : w & 0xffffu;
+      }
+    }
+  }
+  const unsigned live = mask16(pred.alive, v0, pred.n);
+#pragma unroll
+  for (int st = 0; st < NS; ++st) b[st] &= live;
+}
 
 // Two masks over the same rows: stream 0 compacts a, stream 1 compacts b.
 struct DualMaskPred {
   static constexpr int kStreams = 2;
   const uint8_t* a;
   const uint8_t* b;
-  __device__ __forceinline__ void stage(int32_t*) {}
   __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
     hit[0] = __ldg(a + i) != 0;
     hit[1] = __ldg(b + i) != 0;
   }
 };
 
-// plo <= p < phi && olo <= o < ohi, and && alive when Masked.
+// plo <= p < phi && olo <= o < ohi, and && alive when Masked.  compact_tiles
+// tests it row by row (K8); compact_lookback 16 rows a lane (K2, Masked).
 template <bool Masked>
 struct IntervalPred {
   static constexpr int kStreams = 1;
+  static constexpr int shift = 0;  // rows are not shifted (see MaskBits)
   const int32_t* p;
   const int32_t* o;
   int64_t stride;  // int32 elements between consecutive rows of p and o
   const uint8_t* alive;  // read only when Masked
   int32_t plo, phi, olo, ohi;
+  int64_t n;
   __device__ __forceinline__ void stage(int32_t*) {}
+  __device__ __forceinline__ bool in_range(int32_t pv, int32_t ov) const {
+    return pv >= plo && pv < phi && ov >= olo && ov < ohi;
+  }
   __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
-    const int32_t pv = __ldg(p + i * stride);
-    const int32_t ov = __ldg(o + i * stride);
-    bool m = pv >= plo && pv < phi && ov >= olo && ov < ohi;
+    bool m = in_range(__ldg(p + i * stride), __ldg(o + i * stride));
     if constexpr (Masked) m = m && __ldg(alive + i) != 0;
     hit[0] = m;
+  }
+
+  struct Rows {
+    int32_t p[kBatch], o[kBatch];
+  };
+  __device__ __forceinline__ void load(Rows& r, int k, int64_t i) const {
+    r.p[k] = __ldg(p + i * stride);
+    r.o[k] = __ldg(o + i * stride);
+  }
+  __device__ __forceinline__ void test(const Rows& r, unsigned* hits) const {
+    unsigned h = 0;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      h |= (unsigned)in_range(r.p[k], r.o[k]) << k;
+    }
+    hits[0] = h;
+  }
+  __device__ __forceinline__ void bits(int64_t v0, unsigned* b) const {
+    warp_bits(*this, v0, b);
   }
 };
 
@@ -108,20 +211,49 @@ struct IdSet {
     return k;
   }
 
-  __device__ __forceinline__ bool contains(int32_t v) const {
-    int lo = 0, hi = k;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ids[mid] < v) lo = mid + 1; else hi = mid;
+  // Bit j set iff v[j] is a member (want's bits only), for kBatch values
+  // at once.  A set of at most kLinearMax slots (a rewrite's domain and
+  // range sets hold a few predicates) is compared member by member up to
+  // its first padding slot, each member read once for the batch.  A larger
+  // one takes a branch-free search of log2(k) steps for the last slot <=
+  // v, the searches interleaved step by step so their loads overlap; a
+  // member lands on itself.  INVALID is never a member, so an all-padding
+  // set matches nothing (_in_set_tile's contract).
+  __device__ __forceinline__ unsigned contains_batch(const int32_t* v,
+                                                     unsigned want) const {
+    if (k <= kLinearMax) {
+      unsigned m = 0;
+      for (int j = 0; j < k; ++j) {
+        const int32_t e = ids[j];
+        if (e == kInvalid) break;  // sorted: padding only from here
+#pragma unroll
+        for (int r = 0; r < kBatch; ++r) m |= (unsigned)(v[r] == e) << r;
+      }
+      return m & want;
     }
-    const int pos = lo < k ? lo : k - 1;
-    return ids[pos] == v && v != kInvalid;
+    int pos[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) pos[j] = 0;
+    for (int step = k >> 1; step > 0; step >>= 1) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        pos[j] += ids[pos[j] + step] <= v[j] ? step : 0;
+      }
+    }
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      m |= (unsigned)(ids[pos[j]] == v[j] && v[j] != kInvalid) << j;
+    }
+    return m & want;
   }
 };
 
+// K4: stream 0 the subject stream, stream 1 (HasRng) the object stream.
 template <bool HasDom, bool HasRng>
 struct MemberPred {
   static constexpr int kStreams = HasRng ? 2 : 1;
+  static constexpr int shift = 0;
   const int32_t* s;
   const int32_t* p;
   const int32_t* o;
@@ -129,6 +261,7 @@ struct MemberPred {
   const uint8_t* alive;
   int32_t tid;
   IdSet mem, dom, rng;
+  int64_t n;
 
   // Run by every thread of the CTA before the first row; a barrier follows.
   __device__ __forceinline__ void stage(int32_t* smem) {
@@ -137,15 +270,38 @@ struct MemberPred {
     if constexpr (HasRng) rng.stage(smem + used);
   }
 
-  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
-    const int32_t sv = __ldg(s + i * stride);
-    const int32_t pv = __ldg(p + i * stride);
-    const int32_t ov = __ldg(o + i * stride);
-    const bool valid = sv != kInvalid && __ldg(alive + i) != 0;
-    bool ms = pv == tid && mem.contains(ov);
-    if constexpr (HasDom) ms = ms || dom.contains(pv);
-    hit[0] = ms && valid;
-    if constexpr (HasRng) hit[1] = valid && rng.contains(pv);
+  struct Rows {
+    int32_t s[kBatch], p[kBatch], o[kBatch];
+  };
+  __device__ __forceinline__ void load(Rows& r, int k, int64_t i) const {
+    r.s[k] = __ldg(s + i * stride);
+    r.p[k] = __ldg(p + i * stride);
+    r.o[k] = __ldg(o + i * stride);
+  }
+  // mem is searched only for the rows with p == tid, and not at all when
+  // none of the batch has it (the common case).
+  __device__ __forceinline__ void test(const Rows& r, unsigned* hits) const {
+    unsigned valid = 0, typed = 0;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      valid |= (unsigned)(r.s[k] != kInvalid) << k;
+      typed |= (unsigned)(r.p[k] == tid) << k;
+    }
+    unsigned ms = typed ? mem.contains_batch(r.o, typed) : 0u;
+    if constexpr (HasDom) ms |= dom.contains_batch(r.p, ~0u);
+    hits[0] = ms & valid;
+    if constexpr (HasRng) hits[1] = rng.contains_batch(r.p, ~0u) & valid;
+  }
+  __device__ __forceinline__ void bits(int64_t v0, unsigned* b) const {
+    warp_bits(*this, v0, b);
+  }
+
+  // Shared memory ``stage`` takes, in bytes.
+  size_t staged_bytes() const {
+    size_t k = mem.k <= kStageMax ? mem.k : 0;
+    if (HasDom && dom.k <= kStageMax) k += dom.k;
+    if (HasRng && rng.k <= kStageMax) k += rng.k;
+    return k * sizeof(int32_t);
   }
 };
 
@@ -159,10 +315,7 @@ template <typename Pred>
 __global__ void __launch_bounds__(kThreads)
 compact_tiles(Pred pred, int64_t n, int block, Outputs<Pred::kStreams> out) {
   constexpr int NS = Pred::kStreams;
-  extern __shared__ int32_t staged[];
   __shared__ int warp_counts[NS][kWarps];
-  pred.stage(staged);
-  __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t tile0 = (int64_t)blockIdx.x * block;
@@ -179,7 +332,7 @@ compact_tiles(Pred pred, int64_t n, int block, Outputs<Pred::kStreams> out) {
     unsigned ballot[NS];
 #pragma unroll
     for (int st = 0; st < NS; ++st) {
-      ballot[st] = __ballot_sync(0xffffffffu, hit[st]);
+      ballot[st] = __ballot_sync(kFull, hit[st]);
       if (lane == 0) warp_counts[st][warp] = __popc(ballot[st]);
     }
     __syncthreads();
@@ -211,111 +364,88 @@ compact_tiles(Pred pred, int64_t n, int block, Outputs<Pred::kStreams> out) {
 
 template <typename Pred>
 int launch(const Pred& pred, long long n, int block, int nb,
-           Outputs<Pred::kStreams> out, size_t smem_bytes, void* stream) {
-  compact_tiles<Pred><<<nb, kThreads, smem_bytes,
-                        static_cast<cudaStream_t>(stream)>>>(pred, n, block,
-                                                            out);
+           Outputs<Pred::kStreams> out, void* stream) {
+  compact_tiles<Pred><<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pred, n, block, out);
   return (int)cudaGetLastError();
-}
-
-template <bool HasDom, bool HasRng>
-int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
-                  long long stride, const uint8_t* alive, int tid, IdSet mem,
-                  IdSet dom, IdSet rng, long long n, int block, int nb,
-                  int32_t* local_s, int32_t* counts_s, int32_t* local_o,
-                  int32_t* counts_o, void* stream) {
-  using Pred = MemberPred<HasDom, HasRng>;
-  Pred pred{s, p, o, stride, alive, tid, mem, dom, rng};
-  Outputs<Pred::kStreams> out;
-  out.local[0] = local_s;
-  out.counts[0] = counts_s;
-  if constexpr (HasRng) {
-    out.local[1] = local_o;
-    out.counts[1] = counts_o;
-  }
-  size_t staged = mem.k <= kStageMax ? mem.k : 0;
-  if (HasDom && dom.k <= kStageMax) staged += dom.k;
-  if (HasRng && rng.k <= kStageMax) staged += rng.k;
-  return launch(pred, n, block, nb, out, staged * sizeof(int32_t), stream);
 }
 
 // ---------------------------------------------------------------------------
 // compact_lookback: the single-pass global compaction (Merrill & Garland's
-// decoupled look-back, the scheme of CUB's DeviceSelect::Flagged).
+// decoupled look-back, the scheme of CUB's DeviceSelect::Flagged), with one
+// or two output streams.
 //
-// What bounds it on the H100: device memory — n B of mask read, 4 B of take
-// and 1 B of ok written per output slot (cap of each), 4 B of total.
+// What bounds it on the H100: device memory — the predicate's bytes per row
+// (1 B of mask; 13 B for K2's and K4's store rows, every sector of p and o
+// or of s, p and o, and alive), 4 B of take and 1 B of ok written per
+// output slot (cap of each per stream), 4 B of total per stream.
 //
-// Design: the TPU kernel compacts per tile and leaves the stitch of the
-// tiles to ops.py; on Hopper that stitch cost about eighteen small torch
-// launches after the kernel.  Here one launch writes the final arrays.
-//   * Tiles: 256 threads x 2 chunks x 16 rows = 8,192 rows.  In each
-//     4,096-row chunk a thread reads its 16 rows as one aligned 16-byte
-//     load; the two loads are in flight together.  The per-chunk counts
-//     (each <= 4,096) ride in one 64-bit word of 16-bit fields through one
-//     warp scan (__shfl_up_sync) and one scan of the 8 warp totals in
-//     shared memory.  After the look-back each chunk's set rows are staged
-//     in order in shared memory and written out.  A tile pays a few
-//     microseconds of latency (ticket, load, fences, look-back) however
-//     few rows it holds, so a tile of one chunk is slow on a sparse mask;
-//     a tile of four is slow on a dense run of rows (a store compacted in
-//     POS order holds each predicate's rows together), whose write-out it
-//     serialises.  Two chunks sit between (PERF.md has the times).
+// Design: the TPU kernels compact per tile and leave the stitch of the
+// tiles to ops.py; on Hopper that stitch cost about eight small torch
+// launches per stream after the kernel.  Here one launch writes the final
+// arrays.
+//   * Tiles: 256 threads x 2 chunks x 16 rows = 8,192 rows.  The predicate
+//     gives each thread the hits of 16 consecutive rows of each chunk as 16
+//     bits per stream (Pred::bits): a mask thread reads its 16 rows as one
+//     aligned 16-byte load, a warp over store rows reads 32 consecutive
+//     rows per step and transposes the ballots (warp_bits).  The per-chunk
+//     counts (each <= 4,096) ride in one 64-bit word of 16-bit fields, one
+//     per (stream, chunk) — four at most — through one warp scan
+//     (__shfl_up_sync) and one scan of the 8 warp totals in shared memory:
+//     no field can carry into the next.  After the look-back each chunk's
+//     matching rows are staged in order in shared memory and written out.
+//     A tile pays a few microseconds of latency (ticket, load, fences,
+//     look-back) however few rows it holds, so a tile of one chunk is slow
+//     on a sparse mask; a tile of four is slow on a dense run of rows (a
+//     store compacted in POS order holds each predicate's rows together),
+//     whose write-out it serialises.  Two chunks sit between.
 //   * Staging: a thread's 16 rows are consecutive, so on a dense run the
 //     32 lanes of a warp write ranks 16 apart; one padding word after
 //     every 16 (slot r + r / 16) puts them in 32 different banks.
 //   * Order: a tile takes its id from an atomicAdd ticket, not blockIdx, so
 //     a CTA waits only on tiles that running CTAs hold: forward progress.
-//   * Look-back: one 64-bit status word per tile, the flag (aggregate or
-//     inclusive prefix) in the high half and the count in the low half, so
-//     a reader never sees one without the other; it is published after
-//     __threadfence() with a volatile store.  Warp 0 reads the 32 tiles
-//     before its own at a time, waits until each has a flag, and sums the
-//     counts back to the nearest inclusive prefix (a ballot finds it).
+//     One CTA per tile: a persistent grid (resident CTAs taking tiles by
+//     ticket, the next ticket in flight) and tiles of four chunks both ran
+//     K2 and K4 slower (PERF.md).
+//   * Look-back: per stream, one 64-bit status word per tile, the flag
+//     (aggregate or inclusive prefix) in the high half and the count in the
+//     low half, so a reader never sees one without the other; it is
+//     published after __threadfence() with a volatile store.  Warp st looks
+//     back for stream st (two streams: warps 0 and 1 at once), reading the
+//     32 tiles before its own at a time, waiting until each has a flag, and
+//     summing the counts back to the nearest inclusive prefix (a ballot
+//     finds it).  All eight warps reading 256 tiles a step were slower.
 //   * Writes: each chunk's staged rows go out coalesced to its take/ok
-//     slots below cap; the last ticket writes total.
-//     take and ok are zeroed by the entry point beforehand (memsets on the
-//     same stream), so slots past total read 0 / false.
-//   * The predicate is a template parameter (Pred::bits gives the 16 rows'
-//     hits of a thread), so a fused scan predicate is one more struct.
-// Rows are addressed as virtual rows v = row + shift, shift being the mask
-// pointer's offset from a 16-byte boundary (a view such as keep[1:]), so
-// every thread's 16 rows are one aligned load; the segments holding the
-// ragged head (v < shift) and tail (row >= n) load byte by byte.
-constexpr int kScanThreads = 256;
-constexpr int kScanWarps = kScanThreads / 32;
-constexpr int kRowsPerThread = 16;
-constexpr int kChunkRows = kScanThreads * kRowsPerThread;  // 4,096
-constexpr int kChunks = 2;
-constexpr int kTileRows = kChunks * kChunkRows;  // 8,192
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kAggregate = 1ull << 32;  // status flags
-constexpr unsigned long long kPrefix = 2ull << 32;
-
-// Four mask bytes -> 4 bits (bit k set iff byte k is non-zero).
-__device__ __forceinline__ unsigned nibble(unsigned w) {
-  const unsigned m = __vcmpne4(w, 0u) & 0x08040201u;
-  return (m | m >> 8 | m >> 16 | m >> 24) & 0xfu;
-}
+//     slots below cap (a tile whose stream starts at or past cap skips
+//     them); the last ticket writes total.  take, ok, total and the
+//     look-back state lie in one buffer that the entry point zeroes
+//     beforehand (one memset on the same stream), so slots past total
+//     read 0 / false.
+// Rows are addressed as virtual rows v = row + shift.  For a mask, shift is
+// the pointer's offset from a 16-byte boundary (a view such as keep[1:]),
+// so every thread's 16 rows are one aligned load; the segments holding the
+// ragged head (v < shift) and tail (row >= n) load byte by byte.  Strided
+// columns are read 4 bytes at a time, at any alignment, with shift 0.
 
 struct MaskBits {
+  static constexpr int kStreams = 1;
   const uint8_t* mask;
   int64_t n;
   int shift;  // virtual rows before row 0
+  __device__ __forceinline__ void stage(int32_t*) {}
   // Hits of virtual rows v0 .. v0 + 15 (v0 a multiple of 16) as 16 bits.
-  __device__ __forceinline__ unsigned bits(int64_t v0) const {
+  __device__ __forceinline__ void bits(int64_t v0, unsigned* b) const {
     const int64_t r0 = v0 - shift;
-    if (r0 >= 0 && r0 + kRowsPerThread <= n) {
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(mask + r0));
-      return nibble(w.x) | nibble(w.y) << 4 | nibble(w.z) << 8 |
-             nibble(w.w) << 12;
+    if (r0 >= 0) {
+      b[0] = mask16(mask, r0, n);
+      return;
     }
-    unsigned b = 0;
+    unsigned h = 0;  // the ragged head, before the mask's first row
     for (int k = 0; k < kRowsPerThread; ++k) {
       const int64_t r = r0 + k;
-      if (r >= 0 && r < n && __ldg(mask + r) != 0) b |= 1u << k;
+      if (r >= 0 && r < n && __ldg(mask + r) != 0) h |= 1u << k;
     }
-    return b;
+    b[0] = h;
   }
 };
 
@@ -330,7 +460,10 @@ __device__ __forceinline__ unsigned long long peek(
   return *reinterpret_cast<const volatile unsigned long long*>(word);
 }
 
-// The exclusive prefix of ``tile`` (>= 1), by warp 0: sums the counts of
+constexpr unsigned long long kAggregate = 1ull << 32;  // status flags
+constexpr unsigned long long kPrefix = 2ull << 32;
+
+// The exclusive prefix of ``tile`` (>= 1), by one warp: sums the counts of
 // the tiles before it back to the nearest inclusive prefix.
 __device__ unsigned look_back(const unsigned long long* status, int tile,
                               int lane) {
@@ -351,31 +484,53 @@ __device__ unsigned look_back(const unsigned long long* status, int tile,
   }
 }
 
+// The 16-bit field ``f`` of a packed count word.
+__device__ __forceinline__ int field(unsigned long long w, int f) {
+  return (int)((w >> (16 * f)) & 0xffffu);
+}
+
+template <int NS>
+struct LookbackOut {
+  int32_t* take;  // int32[NS * cap]: stream st's slots at st * cap
+  uint8_t* ok;  // uint8[NS * cap], laid out as take
+  int32_t* total;  // int32[NS]
+  unsigned long long* status;  // NS * ntiles words, stream st's at st * ntiles
+  unsigned* ticket;
+};
+
 template <typename Pred>
 __global__ void __launch_bounds__(kScanThreads)
 compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
-                 int32_t* __restrict__ take, uint8_t* __restrict__ ok,
-                 int32_t* __restrict__ total,
-                 unsigned long long* __restrict__ status,
-                 unsigned* __restrict__ ticket) {
+                 LookbackOut<Pred::kStreams> out) {
+  constexpr int NS = Pred::kStreams;
+  static_assert(NS * kChunks <= 4, "the counts share one 64-bit word");
+  extern __shared__ int32_t s_sets[];  // the member sets (MemberPred)
   __shared__ int32_t s_rows[kChunkRows + kChunkRows / 16];  // padded
   __shared__ unsigned long long s_warp[kScanWarps];
   __shared__ int s_tile;
-  __shared__ unsigned s_excl;
-  if (threadIdx.x == 0) s_tile = (int)atomicAdd(ticket, 1u);
+  __shared__ unsigned s_excl[NS];
+  if (threadIdx.x == 0) s_tile = (int)atomicAdd(out.ticket, 1u);
+  pred.stage(s_sets);
   __syncthreads();
   const int tile = s_tile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t base =
       (int64_t)tile * kTileRows + threadIdx.x * kRowsPerThread;
-  unsigned bits[kChunks];  // the thread's 16 rows of each chunk
-  unsigned long long packed = 0;  // their counts, 16 bits per chunk
+  unsigned bits[kChunks][NS];  // the thread's 16 rows of each chunk
+  unsigned long long packed = 0;  // their counts, field st * kChunks + c
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int64_t v0 = base + (int64_t)c * kChunkRows;
-    bits[c] = v0 < nv ? pred.bits(v0) : 0u;
-    packed |= (unsigned long long)__popc(bits[c]) << (16 * c);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) bits[c][st] = 0u;
+    // the warp's first row: the test is warp-uniform, as warp_bits needs
+    if (v0 - kRowsPerThread * lane < nv) pred.bits(v0, bits[c]);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      packed |= (unsigned long long)__popc(bits[c][st])
+                << (16 * (st * kChunks + c));
+    }
   }
   unsigned long long incl = packed;
 #pragma unroll
@@ -393,82 +548,113 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
     aggp += x;
   }
   const unsigned long long mine = before + incl - packed;  // ranks in chunks
-  int agg = 0;
+  if (warp < NS) {
+    const int st = warp;
+    unsigned agg = 0;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    agg += (int)((aggp >> (16 * c)) & 0xffffu);
-  }
-  if (warp == 0) {
+    for (int c = 0; c < kChunks; ++c) agg += (unsigned)field(aggp, st * kChunks + c);
+    unsigned long long* status = out.status + (int64_t)st * ntiles;
     unsigned excl = 0;
     if (tile == 0) {
-      if (lane == 0) publish(status, kPrefix | (unsigned)agg);
+      if (lane == 0) publish(status, kPrefix | agg);
     } else {
-      if (lane == 0) publish(status + tile, kAggregate | (unsigned)agg);
+      if (lane == 0) publish(status + tile, kAggregate | agg);
       excl = look_back(status, tile, lane);
-      if (lane == 0) publish(status + tile, kPrefix | (excl + (unsigned)agg));
+      if (lane == 0) publish(status + tile, kPrefix | (excl + agg));
     }
-    if (lane == 0) s_excl = excl;
+    if (lane == 0) s_excl[st] = excl;
   }
   __syncthreads();
-  int64_t start = s_excl;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    int rank = (int)((mine >> (16 * c)) & 0xffffu);
-    const int64_t r0 = base + (int64_t)c * kChunkRows - pred.shift;
-    unsigned b = bits[c];
-    while (b) {
-      s_rows[rank + (rank >> 4)] = (int32_t)(r0 + __ffs(b) - 1);
-      ++rank;
-      b &= b - 1;
-    }
-    __syncthreads();
-    const int tc = (int)((aggp >> (16 * c)) & 0xffffu);
-    for (int j = threadIdx.x; j < tc; j += kScanThreads) {
-      const int64_t r = start + j;
-      if (r < cap) {
-        take[r] = s_rows[j + (j >> 4)];
-        ok[r] = 1;
+  for (int st = 0; st < NS; ++st) {
+    int64_t start = s_excl[st];
+    int32_t* take = out.take + st * cap;
+    uint8_t* ok = out.ok + st * cap;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int f = st * kChunks + c;
+      const int tc = field(aggp, f);
+      if (start < cap) {  // block-uniform
+        int rank = field(mine, f);
+        const int64_t r0 = base + (int64_t)c * kChunkRows - pred.shift;
+        unsigned b = bits[c][st];
+        while (b) {
+          s_rows[rank + (rank >> 4)] = (int32_t)(r0 + __ffs(b) - 1);
+          ++rank;
+          b &= b - 1;
+        }
+        __syncthreads();
+        for (int j = threadIdx.x; j < tc; j += kScanThreads) {
+          const int64_t r = start + j;
+          if (r < cap) {
+            take[r] = s_rows[j + (j >> 4)];
+            ok[r] = 1;
+          }
+        }
+        __syncthreads();  // s_rows takes the next chunk
       }
+      start += tc;
     }
-    start += tc;
-    __syncthreads();  // s_rows takes the next chunk
+    if (tile == ntiles - 1 && threadIdx.x == 0) out.total[st] = (int32_t)start;
   }
-  if (tile == ntiles - 1 && threadIdx.x == 0) *total = (int32_t)start;
 }
 
+// Zero the outputs and the look-back state (one buffer of zero_bytes that
+// starts at take and holds ok, total and scratch), then launch.
 template <typename Pred>
 int launch_lookback(const Pred& pred, long long nv, long long cap,
                     void* take, void* ok, void* total, void* scratch,
-                    long long scratch_words, void* stream) {
+                    long long scratch_words, long long zero_bytes,
+                    size_t smem_bytes, void* stream) {
+  constexpr int NS = Pred::kStreams;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long tiles = nv > 0 ? (nv + kTileRows - 1) / kTileRows : 1;
-  if (tiles + 1 > scratch_words || cap < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(take, 0, (size_t)cap * 4, st);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ok, 0, (size_t)cap, st);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(scratch, 0, (size_t)(tiles + 1) * 8, st);
+  if (NS * tiles + 1 > scratch_words || cap < 0 || zero_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(take, 0, (size_t)zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
   unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  compact_lookback<Pred><<<(unsigned)tiles, kScanThreads, 0, st>>>(
-      pred, nv, (int)tiles, cap, static_cast<int32_t*>(take),
-      static_cast<uint8_t*>(ok), static_cast<int32_t*>(total), words + 1,
-      reinterpret_cast<unsigned*>(words));
+  LookbackOut<NS> out{static_cast<int32_t*>(take), static_cast<uint8_t*>(ok),
+                      static_cast<int32_t*>(total), words + 1,
+                      reinterpret_cast<unsigned*>(words)};
+  compact_lookback<Pred><<<(unsigned)tiles, kScanThreads, smem_bytes, st>>>(
+      pred, nv, (int)tiles, cap, out);
   return (int)cudaGetLastError();
+}
+
+template <bool HasDom, bool HasRng>
+int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
+                  long long stride, const uint8_t* alive, int tid, IdSet mem,
+                  IdSet dom, IdSet rng, long long n, long long cap,
+                  void* take, void* ok, void* total, void* scratch,
+                  long long scratch_words, long long zero_bytes,
+                  void* stream) {
+  MemberPred<HasDom, HasRng> pred{s, p, o, stride, alive, tid, mem, dom, rng,
+                                  n};
+  return launch_lookback(pred, n, cap, take, ok, total, scratch,
+                         scratch_words, zero_bytes, pred.staged_bytes(),
+                         stream);
 }
 
 }  // namespace
 
-// mask: uint8[n] (torch.bool), any alignment, n < 2**31; take: int32[cap];
-// ok: uint8[cap]; total: int32[1]; scratch: scratch_words >= ceil((n + 15)
-// / 8192) + 1 int64 words.
+// The look-back entries (compact_mask, masked_interval_compact,
+// member_compact) share their output arguments: one buffer of zero_bytes
+// starting at take, which the entry zeroes, holds take (int32[S * cap]),
+// ok (uint8[S * cap]), total (int32[S]) and scratch (scratch_words >=
+// S * ceil((n + 15) / 8192) + 1 int64 words: the ticket, then each
+// stream's tile status words), S being the number of output streams.
+
+// mask: uint8[n] (torch.bool), any alignment, n < 2**31.
 extern "C" int compact_mask(const void* mask, long long n, long long cap,
                             void* take, void* ok, void* total, void* scratch,
-                            long long scratch_words, void* stream) {
+                            long long scratch_words, long long zero_bytes,
+                            void* stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const int shift = (int)(reinterpret_cast<uintptr_t>(m) & 15);
   MaskBits pred{m, n, shift};
   return launch_lookback(pred, n + shift, cap, take, ok, total, scratch,
-                         scratch_words, stream);
+                         scratch_words, zero_bytes, 0, stream);
 }
 
 // p, o: int32 columns with ``stride`` elements between rows (3 for the
@@ -476,27 +662,29 @@ extern "C" int compact_mask(const void* mask, long long n, long long cap,
 extern "C" int masked_interval_compact(const void* p, const void* o,
                                        long long stride, const void* alive,
                                        int plo, int phi, int olo, int ohi,
-                                       long long n, int block, int nb,
-                                       void* local, void* counts,
-                                       void* stream) {
+                                       long long n, long long cap, void* take,
+                                       void* ok, void* total, void* scratch,
+                                       long long scratch_words,
+                                       long long zero_bytes, void* stream) {
   IntervalPred<true> pred{static_cast<const int32_t*>(p),
                           static_cast<const int32_t*>(o), stride,
                           static_cast<const uint8_t*>(alive),
-                          plo, phi, olo, ohi};
-  Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
-  return launch(pred, n, block, nb, out, 0, stream);
+                          plo, phi, olo, ohi, n};
+  return launch_lookback(pred, n, cap, take, ok, total, scratch,
+                         scratch_words, zero_bytes, 0, stream);
 }
 
-// masked_interval_compact without the alive column.
+// masked_interval_compact's predicate without the alive column, compacted
+// per tile: local int32[nb * block], counts int32[nb].
 extern "C" int interval_compact(const void* p, const void* o, long long stride,
                                 int plo, int phi, int olo, int ohi,
                                 long long n, int block, int nb, void* local,
                                 void* counts, void* stream) {
   IntervalPred<false> pred{static_cast<const int32_t*>(p),
                            static_cast<const int32_t*>(o), stride, nullptr,
-                           plo, phi, olo, ohi};
+                           plo, phi, olo, ohi, n};
   Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
-  return launch(pred, n, block, nb, out, 0, stream);
+  return launch(pred, n, block, nb, out, stream);
 }
 
 // mask_a, mask_b: uint8[n] (torch.bool); stream a -> local_a/counts_a,
@@ -512,20 +700,22 @@ extern "C" int dual_compact(const void* mask_a, const void* mask_b,
   out.counts[0] = static_cast<int32_t*>(counts_a);
   out.local[1] = static_cast<int32_t*>(local_b);
   out.counts[1] = static_cast<int32_t*>(counts_b);
-  return launch(pred, n, block, nb, out, 0, stream);
+  return launch(pred, n, block, nb, out, stream);
 }
 
 // s, p, o: int32 columns with ``stride`` elements between rows; alive:
 // uint8[n] (torch.bool); mem/dom/rng: sorted INT32_MAX-padded int32 sets of
-// mem_k/dom_k/rng_k (powers of two) entries.  The object stream
-// (local_o/counts_o) is written only when has_rng.
+// mem_k/dom_k/rng_k (powers of two) entries.  Stream 0 is the subject
+// stream; the object stream (stream 1) exists only when has_rng.
 extern "C" int member_compact(const void* s, const void* p, const void* o,
                               long long stride, const void* alive, int tid,
                               const void* mem, int mem_k, const void* dom,
                               int dom_k, const void* rng, int rng_k,
-                              int has_dom, int has_rng, long long n, int block,
-                              int nb, void* local_s, void* counts_s,
-                              void* local_o, void* counts_o, void* stream) {
+                              int has_dom, int has_rng, long long n,
+                              long long cap, void* take, void* ok,
+                              void* total, void* scratch,
+                              long long scratch_words, long long zero_bytes,
+                              void* stream) {
   const int32_t* sc = static_cast<const int32_t*>(s);
   const int32_t* pc = static_cast<const int32_t*>(p);
   const int32_t* oc = static_cast<const int32_t*>(o);
@@ -533,19 +723,19 @@ extern "C" int member_compact(const void* s, const void* p, const void* o,
   IdSet ms{static_cast<const int32_t*>(mem), mem_k};
   IdSet ds{static_cast<const int32_t*>(dom), dom_k};
   IdSet rs{static_cast<const int32_t*>(rng), rng_k};
-  int32_t* ls = static_cast<int32_t*>(local_s);
-  int32_t* cs = static_cast<int32_t*>(counts_s);
-  int32_t* lo = static_cast<int32_t*>(local_o);
-  int32_t* co = static_cast<int32_t*>(counts_o);
   if (has_dom && has_rng)
     return launch_member<true, true>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                     n, block, nb, ls, cs, lo, co, stream);
+                                     n, cap, take, ok, total, scratch,
+                                     scratch_words, zero_bytes, stream);
   if (has_dom)
     return launch_member<true, false>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                      n, block, nb, ls, cs, lo, co, stream);
+                                      n, cap, take, ok, total, scratch,
+                                      scratch_words, zero_bytes, stream);
   if (has_rng)
     return launch_member<false, true>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                      n, block, nb, ls, cs, lo, co, stream);
+                                      n, cap, take, ok, total, scratch,
+                                      scratch_words, zero_bytes, stream);
   return launch_member<false, false>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                     n, block, nb, ls, cs, lo, co, stream);
+                                     n, cap, take, ok, total, scratch,
+                                     scratch_words, zero_bytes, stream);
 }

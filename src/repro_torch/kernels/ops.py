@@ -7,7 +7,7 @@ kernel module (stream_compact.py, pair_search.py, merge_sorted.py,
 interval_filter.py, msc_select.py, closure_expand.py), which runs the CUDA
 kernel on a CUDA tensor and the plain version on a CPU one.
 The helpers with no kernel (``segment_positions``, ``two_source_gather``,
-the tile stitch of the fused compactions) are plain torch.
+the tile stitch of K7's and K8's compactions) are plain torch.
 """
 from __future__ import annotations
 
@@ -238,15 +238,13 @@ def rewrite_member_compact(spo, alive, tid: int, mem, dom, rng, cap: int,
     dom`` and object branch ``p in rng`` — and compacts the matching row
     indices of each branch.  Returns ``(take_s, ok_s, total_s)``, extended
     with ``(take_o, ok_o, total_o)`` when ``has_rng``; each triple matches
-    the ``compact_indices`` contract.
+    the ``compact_indices`` contract.  One single-pass kernel writes them
+    all; ``block``, the reference's tile size, changes nothing.
     """
     _bump_pass("member_compact")
-    streams = _sc.member_tiles(spo[:, 0], spo[:, 1], spo[:, 2], alive, tid,
-                               mem, dom, rng, has_dom, has_rng, block)
-    out = ()
-    for local, counts in streams:
-        out += _assemble_compact(local, counts, cap, block)
-    return out
+    streams = _sc.member_compact(spo[:, 0], spo[:, 1], spo[:, 2], alive, tid,
+                                 mem, dom, rng, has_dom, has_rng, cap)
+    return (*streams[0], *streams[1]) if has_rng else tuple(streams[0])
 
 
 def interval_compact(p, o, params, cap: int, block: int = 512):
@@ -264,11 +262,11 @@ def masked_interval_compact(p, o, alive, params, cap: int, block: int = 512):
     """Fused interval predicate + liveness mask + compaction in one pass.
 
     ``params`` = (plo, phi, olo, ohi) as ints; ``p``/``o`` may be strided
-    column views of the store rows.  Same returns as ``compact_indices``.
+    column views of the store rows.  Same returns as ``compact_indices``:
+    one single-pass kernel writes them; ``block`` changes nothing.
     """
     _bump_pass("compact")
-    local, counts = _sc.masked_interval_tiles(p, o, alive, params, block)
-    return _assemble_compact(local, counts, cap, block)
+    return _sc.masked_interval_compact(p, o, alive, params, cap)
 
 
 __all__ = [

@@ -1,35 +1,41 @@
 """Stable stream compaction: the CUDA kernels and their plain versions.
 
-``compact_mask`` (the port of ``stream_compact_pallas``) compacts a bool
-mask in one pass over the whole input (``csrc/stream_compact.cu``'s
-``compact_lookback``) and returns ``ops.compact_indices``' contract
-itself: ``take int32[cap]`` (the indices of the first ``cap`` set rows, 0
-behind), ``ok bool[cap]`` (slot < total) and ``total`` (int32, 0-d).
+Three wrappers launch the single-pass compaction (``csrc/stream_compact.cu``'s
+``compact_lookback``, one predicate each) and return ``ops``' contract
+themselves, per output stream: ``take int32[cap]`` (the indices of the
+first ``cap`` matching rows, 0 behind), ``ok bool[cap]`` (slot < total)
+and ``total`` (int32, 0-d):
 
-Four wrappers share the tile-local kernel (``compact_tiles``), each fusing
-a predicate with the compaction:
-
-  * ``interval_tiles``        — evaluates ``plo <= p < phi and olo <= o <
-    ohi`` per row and compacts in the same pass (the port of
-    ``interval_compact_pallas``),
-  * ``masked_interval_tiles`` — the same predicate ``and alive`` (the port
-    of ``masked_interval_compact_pallas``); in both, ``p`` and ``o`` may be
-    strided column views of an [N, 3] store, read in place,
-  * ``member_tiles``          — the rewrite-mode type pattern (the port of
-    ``member_compact_pallas``): the subject stream ``(p == tid and o in
+  * ``compact_mask``            — a bool mask (the port of
+    ``stream_compact_pallas``),
+  * ``masked_interval_compact`` — ``plo <= p < phi and olo <= o < ohi and
+    alive`` per row (the port of ``masked_interval_compact_pallas``),
+  * ``member_compact``          — the rewrite-mode type pattern (the port
+    of ``member_compact_pallas``): the subject stream ``(p == tid and o in
     mem) or p in dom`` and, with ``has_rng``, the object stream ``p in
     rng``, each ANDed with ``alive and s != INVALID`` and compacted on its
-    own; the sorted id sets are searched inside the kernel,
-  * ``dual_compact_tiles``    — two precomputed bool masks over the same
+    own; the sorted id sets are searched inside the kernel.
+
+In the last two, ``p``/``o`` (and ``s``) may be strided column views of an
+[N, 3] store, read in place.  Each is one ctypes call: the entry point
+zeroes the outputs and the look-back state and launches the kernel; no
+torch op follows it.
+
+Two wrappers share the tile-local kernel (``compact_tiles``), each fusing a
+predicate with a compaction per tile:
+
+  * ``interval_tiles``     — the interval predicate without ``alive`` (the
+    port of ``interval_compact_pallas``),
+  * ``dual_compact_tiles`` — two precomputed bool masks over the same
     rows, each compacted into its own stream in one pass (the port of
     ``dual_compact_pallas``).
 
-Each stream is ``(local int32[nb * block], counts int32[nb])`` with the
-contract of ``ref_stream_compact`` (``compact_tiles_plain``): tile t's
-slice holds the global indices of its matching rows in ascending order,
-INVALID behind them.  Rows past the input length are padding and never
-match; an empty input still yields one (all-padding) tile.  kernels/ops.py
-stitches the tiles.
+Each of their streams is ``(local int32[nb * block], counts int32[nb])``
+with the contract of ``ref_stream_compact`` (``compact_tiles_plain``): tile
+t's slice holds the global indices of its matching rows in ascending
+order, INVALID behind them.  Rows past the input length are padding and
+never match; an empty input still yields one (all-padding) tile.
+kernels/ops.py stitches the tiles.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel (counted in ``<wrapper>.launches``) or raises.
@@ -48,16 +54,16 @@ from repro_torch.kernels.interval_filter import (
 
 INVALID = int(np.iinfo(np.int32).max)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_COMPACT_MASK = build.Entry("stream_compact", "compact_mask",
-                            [_P, _L, _L, _P, _P, _P, _P, _L, _P])
+_OUT = [_L, _P, _P, _P, _P, _L, _L, _P]  # cap, the outputs, the stream
+_COMPACT_MASK = build.Entry("stream_compact", "compact_mask", [_P, _L, *_OUT])
 _MASKED_INTERVAL = build.Entry(
     "stream_compact", "masked_interval_compact",
-    [_P, _P, _L, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
+    [_P, _P, _L, _P, _I, _I, _I, _I, _L, *_OUT])
 _INTERVAL = build.Entry("stream_compact", "interval_compact",
                         [_P, _P, _L, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P])
 _MEMBER = build.Entry("stream_compact", "member_compact",
                       [_P, _P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-                       _L, _I, _I, _P, _P, _P, _P, _P])
+                       _L, *_OUT])
 _DUAL = build.Entry("stream_compact", "dual_compact",
                     [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P])
 _TILE_ROWS = 8192  # compact_lookback's rows per tile
@@ -94,13 +100,40 @@ def compact_mask_plain(mask: torch.Tensor, cap: int):
     return take, ok, torch.tensor(total, dtype=torch.int32, device=mask.device)
 
 
+def _lookback_outputs(dev: torch.device, streams: int, n: int, cap: int):
+    """The outputs of one look-back launch over ``n`` rows, in one int32
+    buffer that the entry point zeroes whole: take int32[streams * cap],
+    total int32[streams], ok bool[streams * cap] (a byte per slot), then the
+    scratch (int64 words: the ticket, then each stream's tile status words).
+
+    Returns (the entry's trailing arguments but the stream, [(take, ok,
+    total)] per stream).  The views are made with ``as_strided``, the
+    cheapest view torch has: this runs once per launch.
+    """
+    if n >= 1 << 31 or cap < 0:
+        raise ValueError(f"the compaction takes n < 2**31 rows and cap >= 0, "
+                         f"got n={n}, cap={cap}")
+    words = 1 + streams * (n // _TILE_ROWS + 2)  # a ragged head adds a tile
+    slots = streams * cap
+    ok_at = slots + streams
+    scratch_at = ok_at + -(-slots // 4)
+    scratch_at += scratch_at & 1  # int64 words start 8-byte aligned
+    buf = torch.empty(scratch_at + 2 * words, dtype=torch.int32, device=dev)
+    ok_bytes = buf.view(torch.bool)
+    at = buf.data_ptr()
+    args = (cap, at, at + 4 * ok_at, at + 4 * slots, at + 4 * scratch_at,
+            words, 4 * buf.shape[0])
+    return args, [(buf.as_strided((cap,), (1,), st * cap),
+                   ok_bytes.as_strided((cap,), (1,), 4 * ok_at + st * cap),
+                   buf.as_strided((), (), slots + st))
+                  for st in range(streams)]
+
+
 def compact_mask(mask: torch.Tensor, cap: int):
     """bool[n] -> (take int32[cap], ok bool[cap], total int32 0-d).
 
-    One ctypes call: the entry point zeroes the outputs and the look-back
-    state and launches the kernel; no torch op follows it.  ``mask`` must
-    be contiguous (any alignment: a view such as ``keep[1:]`` is read in
-    place).
+    ``mask`` must be contiguous (any alignment: a view such as ``keep[1:]``
+    is read in place).
     """
     if mask.device.type == "cpu":
         return compact_mask_plain(mask, cap)
@@ -108,22 +141,54 @@ def compact_mask(mask: torch.Tensor, cap: int):
     if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
         raise ValueError("compact_mask takes a contiguous 1-D bool mask")
     n = mask.shape[0]
-    if n >= 1 << 31 or cap < 0:
-        raise ValueError(f"compact_mask takes n < 2**31 rows and cap >= 0, "
-                         f"got n={n}, cap={cap}")
-    take = torch.empty(cap, dtype=torch.int32, device=dev)
-    ok = torch.empty(cap, dtype=torch.bool, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    # the ticket, then one status word per tile (a ragged head adds one)
-    scratch = torch.empty(n // _TILE_ROWS + 3, dtype=torch.int64, device=dev)
-    _COMPACT_MASK(mask.data_ptr(), n, cap, take.data_ptr(), ok.data_ptr(),
-                  total.data_ptr(), scratch.data_ptr(), scratch.shape[0],
-                  build.stream(dev))
+    args, (out,) = _lookback_outputs(dev, 1, n, cap)
+    _COMPACT_MASK(mask.data_ptr(), n, *args, build.stream(dev))
     compact_mask.launches += 1
-    return take, ok, total
+    return out
 
 
 compact_mask.launches = 0
+
+
+def _check_alive(alive: torch.Tensor, n: int) -> None:
+    if (alive.dtype != torch.bool or alive.shape != (n,)
+            or not alive.is_contiguous()):
+        raise ValueError("alive must be a contiguous bool[n]")
+
+
+def interval_mask(p, o, alive, params):
+    """The fused scan predicate, row by row (plain version's first half)."""
+    return interval_filter_plain(p, o, params) & alive
+
+
+def masked_interval_compact_plain(p, o, alive, params, cap: int):
+    """Plain version: the predicate, then the plain compaction."""
+    return compact_mask_plain(interval_mask(p, o, alive, params), cap)
+
+
+def masked_interval_compact(p: torch.Tensor, o: torch.Tensor,
+                            alive: torch.Tensor, params, cap: int):
+    """Fused interval + liveness predicate and compaction in one pass ->
+    (take int32[cap], ok bool[cap], total int32 0-d).
+
+    ``p``/``o``: int32[n] (strided views allowed, one shared stride);
+    ``alive``: bool[n]; ``params``: four ints (plo, phi, olo, ohi).
+    """
+    params = [int(v) for v in params]
+    if p.device.type == "cpu":
+        return masked_interval_compact_plain(p, o, alive, params, cap)
+    dev = build.require_cuda(p, o, alive)
+    check_columns(p, o)
+    n = p.shape[0]
+    _check_alive(alive, n)
+    args, (out,) = _lookback_outputs(dev, 1, n, cap)
+    _MASKED_INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), alive.data_ptr(),
+                     *params, n, *args, build.stream(dev))
+    masked_interval_compact.launches += 1
+    return out
+
+
+masked_interval_compact.launches = 0
 
 
 def _check_block(block: int) -> None:
@@ -159,45 +224,6 @@ def interval_tiles(p: torch.Tensor, o: torch.Tensor, params, block: int):
 
 
 interval_tiles.launches = 0
-
-
-def interval_mask(p, o, alive, params):
-    """The fused scan predicate, row by row (plain version's first half)."""
-    return interval_filter_plain(p, o, params) & alive
-
-
-def masked_interval_tiles_plain(p, o, alive, params, block: int):
-    """Plain version: the predicate, then the plain compaction."""
-    return compact_tiles_plain(interval_mask(p, o, alive, params), block)
-
-
-def masked_interval_tiles(p: torch.Tensor, o: torch.Tensor,
-                          alive: torch.Tensor, params, block: int):
-    """Fused interval + liveness predicate and compaction in one pass.
-
-    ``p``/``o``: int32[n] (strided views allowed, one shared stride);
-    ``alive``: bool[n]; ``params``: four ints (plo, phi, olo, ohi).
-    """
-    _check_block(block)
-    params = [int(v) for v in params]
-    if p.device.type == "cpu":
-        return masked_interval_tiles_plain(p, o, alive, params, block)
-    dev = build.require_cuda(p, o, alive)
-    n = p.shape[0]
-    check_columns(p, o)
-    if alive.dtype != torch.bool or alive.shape != p.shape or not alive.is_contiguous():
-        raise ValueError("alive must be a contiguous bool[n]")
-    nb = n_tiles(n, block)
-    local = torch.empty(nb * block, dtype=torch.int32, device=dev)
-    counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    _MASKED_INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), alive.data_ptr(),
-                     *params, n, block, nb, local.data_ptr(),
-                     counts.data_ptr(), build.stream(dev))
-    masked_interval_tiles.launches += 1
-    return local, counts
-
-
-masked_interval_tiles.launches = 0
 
 
 def in_set(col: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -236,55 +262,56 @@ def member_tiles_plain(s, p, o, alive, tid: int, mem, dom, rng,
     return out
 
 
-def member_tiles(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
-                 alive: torch.Tensor, tid: int, mem: torch.Tensor,
-                 dom: torch.Tensor, rng: torch.Tensor, has_dom: bool,
-                 has_rng: bool, block: int):
+def member_compact_plain(s, p, o, alive, tid: int, mem, dom, rng,
+                         has_dom: bool, has_rng: bool, cap: int):
+    """Plain version: the masks, then the plain compaction of each."""
+    m_s, m_o = member_masks(s, p, o, alive, tid, mem, dom, rng, has_dom,
+                            has_rng)
+    out = [compact_mask_plain(m_s, cap)]
+    if has_rng:
+        out.append(compact_mask_plain(m_o, cap))
+    return out
+
+
+def member_compact(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
+                   alive: torch.Tensor, tid: int, mem: torch.Tensor,
+                   dom: torch.Tensor, rng: torch.Tensor, has_dom: bool,
+                   has_rng: bool, cap: int):
     """Fused rewrite type-pattern predicate and compaction in one pass.
 
     ``s``/``p``/``o``: int32[n] views with one shared stride (the columns
     of an [N, 3] store); ``alive``: bool[n]; ``mem``/``dom``/``rng``: sorted
     int32 sets padded with INT32_MAX to a power of two.  Returns a list of
-    one (subject) or, with ``has_rng``, two (subject, object) streams.
+    one (subject) or, with ``has_rng``, two (subject, object) triples
+    (take int32[cap], ok bool[cap], total int32 0-d).
     """
-    _check_block(block)
     tid = int(tid)
     if s.device.type == "cpu":
-        return member_tiles_plain(s, p, o, alive, tid, mem, dom, rng,
-                                  has_dom, has_rng, block)
+        return member_compact_plain(s, p, o, alive, tid, mem, dom, rng,
+                                    has_dom, has_rng, cap)
     dev = build.require_cuda(s, p, o, alive, mem, dom, rng)
     n = s.shape[0]
-    cols = (s, p, o)
-    if (any(c.dtype != torch.int32 or c.dim() != 1 or c.shape != s.shape
-            or c.stride() != s.stride() for c in cols)):
+    if not (s.dtype == p.dtype == o.dtype == torch.int32 and s.dim() == 1
+            and s.shape == p.shape == o.shape
+            and s.stride() == p.stride() == o.stride()):
         raise ValueError("s, p and o must be int32[n] views with one stride")
-    if alive.dtype != torch.bool or alive.shape != s.shape or not alive.is_contiguous():
-        raise ValueError("alive must be a contiguous bool[n]")
+    _check_alive(alive, n)
     for ids in (mem, dom, rng):
         k = ids.shape[0]
         if (ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous()
                 or k == 0 or k & (k - 1)):
             raise ValueError("member sets must be contiguous int32 of a "
                              "power-of-two length")
-    nb = n_tiles(n, block)
-    streams = 2 if has_rng else 1
-    outs = [(torch.empty(nb * block, dtype=torch.int32, device=dev),
-             torch.empty(nb, dtype=torch.int32, device=dev))
-            for _ in range(streams)]
-    local_o, counts_o = outs[-1] if has_rng else (None, None)
+    args, outs = _lookback_outputs(dev, 2 if has_rng else 1, n, cap)
     _MEMBER(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
             alive.data_ptr(), tid, mem.data_ptr(), mem.shape[0],
             dom.data_ptr(), dom.shape[0], rng.data_ptr(), rng.shape[0],
-            int(has_dom), int(has_rng), n, block, nb,
-            outs[0][0].data_ptr(), outs[0][1].data_ptr(),
-            None if local_o is None else local_o.data_ptr(),
-            None if counts_o is None else counts_o.data_ptr(),
-            build.stream(dev))
-    member_tiles.launches += 1
+            int(has_dom), int(has_rng), n, *args, build.stream(dev))
+    member_compact.launches += 1
     return outs
 
 
-member_tiles.launches = 0
+member_compact.launches = 0
 
 
 def dual_compact_tiles_plain(mask_a, mask_b, block: int):

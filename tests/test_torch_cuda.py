@@ -34,9 +34,10 @@ def test_cuda_kernels_match_plain():
         rows = torch.randint(0, 50, (n, 3), generator=g, dtype=torch.int32).to(dev)
         prm = (10, 20, 5, 45)
         for a, b in zip(
-                t_sc.masked_interval_tiles(rows[:, 1], rows[:, 2], mask, prm, block),
-                t_sc.masked_interval_tiles_plain(rows[:, 1], rows[:, 2], mask,
-                                                 prm, block)):
+                t_sc.masked_interval_compact(rows[:, 1], rows[:, 2], mask, prm,
+                                             4096),
+                t_sc.masked_interval_compact_plain(rows[:, 1], rows[:, 2], mask,
+                                                   prm, 4096)):
             assert torch.equal(a, b)
     rows = torch.randint(0, 100, (200_000, 3), generator=g, dtype=torch.int32)
     rows = rows[torch.sort(rows[:, 1].long() * 128 + rows[:, 0], stable=True).indices]
@@ -59,25 +60,46 @@ def _member_set(ids, cap):
     return out
 
 
+def _same(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _flat(streams):
+    return [t for st in streams for t in st]
+
+
 @pytest.mark.cuda
 def test_cuda_member_compact_matches_plain():
-    """K4 (member_tiles) equals its plain version, bit for bit, on every
-    has_dom/has_rng case, empty and all-padding sets, sets larger than the
-    staged part, INVALID rows, and 512/4096-row tiles (needs a card)."""
+    """K4 (member_compact, the single-pass look-back) equals its plain
+    version, bit for bit, on every has_dom/has_rng case, empty (all-padding)
+    sets of 8 and 1 slots, full and padded sets of 4 and 16 slots (compared
+    member by member) and of 32 (searched), sets of 2,048 ids (all staged)
+    and larger (searched in device memory), one set for dom and rng (rows
+    hit both branches), INVALID subjects and objects, dead rows, n = 0, one
+    row, ragged and multi-tile stores, stride-1 columns, and caps at and
+    under each stream's total (needs a card)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     inv = 2**31 - 1
+    both = _member_set([2, 6, 7, 11], 4)
     sets = {
         "small": (_member_set([3, 5, 9], 8), _member_set([1, 7], 8),
                   _member_set([2, 6, 11], 8)),
         "all_pad": (_member_set([], 8), _member_set([], 8), _member_set([], 8)),
+        "pad1": (_member_set([], 1), _member_set([], 1), _member_set([], 1)),
+        "both": (_member_set(torch.arange(0, 8192, 4), 2048), both, both),
+        "sixteen": (_member_set(torch.arange(0, 32, 2), 16),
+                    _member_set(torch.arange(14), 16),
+                    _member_set(torch.arange(1, 14, 2), 16)),
         "large": (_member_set(torch.randint(0, 12000, (5000,), generator=g), 8192),
                   _member_set(torch.randint(0, 40, (30,), generator=g), 32),
                   _member_set(torch.randint(0, 12000, (3000,), generator=g), 4096)),
     }
-    for n, block in ((0, 512), (1, 512), (3 * 512 + 17, 512), (70_000, 4096)):
+    for n in (0, 1, 3 * 512 + 17, 70_000):
         spo = torch.randint(0, 12000, (n, 3), generator=g, dtype=torch.int32)
         spo[:, 1] = torch.randint(0, 14, (n,), generator=g, dtype=torch.int32)
         if n:
@@ -85,17 +107,60 @@ def test_cuda_member_compact_matches_plain():
             spo[torch.rand(n, generator=g) < 0.05, 2] = inv
         alive = torch.rand(n, generator=g) < 0.9
         spo, alive = spo.to(dev), alive.to(dev)
-        for mem, dom, rng in sets.values():
-            mem, dom, rng = mem.to(dev), dom.to(dev), rng.to(dev)
-            for has_dom in (False, True):
-                for has_rng in (False, True):
-                    args = (spo[:, 0], spo[:, 1], spo[:, 2], alive, 4, mem,
-                            dom, rng, has_dom, has_rng, block)
-                    got = t_sc.member_tiles(*args)
-                    want = t_sc.member_tiles_plain(*args)
-                    assert len(got) == len(want) == (2 if has_rng else 1)
-                    for (gl, gc), (wl, wc) in zip(got, want):
-                        assert torch.equal(gl, wl) and torch.equal(gc, wc)
+        views = [(spo[:, 0], spo[:, 1], spo[:, 2])]
+        if n == 70_000:  # stride-1 columns, one of them off 16-byte alignment
+            views.append((spo[1:, 0].contiguous(), spo[1:, 1].contiguous(),
+                          spo[:, 2].contiguous()[1:]))
+        for cols in views:
+            m = cols[0].shape[0]
+            for mem, dom, rng in sets.values():
+                mem, dom, rng = mem.to(dev), dom.to(dev), rng.to(dev)
+                for has_dom in (False, True):
+                    for has_rng in (False, True):
+                        args = (*cols, alive[:m], 4, mem, dom, rng, has_dom,
+                                has_rng)
+                        totals = [int(t[2]) for t in
+                                  t_sc.member_compact_plain(*args, 0)]
+                        for cap in {max(totals) + 8, max(min(totals) // 3, 1)}:
+                            got = t_sc.member_compact(*args, cap)
+                            want = t_sc.member_compact_plain(*args, cap)
+                            assert len(got) == (2 if has_rng else 1)
+                            _same(_flat(got), _flat(want))
+
+
+@pytest.mark.cuda
+def test_cuda_masked_interval_compact_edges():
+    """K2 (masked_interval_compact, the single-pass look-back) equals its
+    plain version, bit for bit: n = 0, one row, ragged tiles and 2**17 + 3
+    rows; store column views at offsets 0-3 rows, stride-1 columns aligned
+    and not; all, no, random and a live head of rows alive; every row, no
+    row and some rows in range; caps at and under the total (needs a
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    inv = 2**31 - 1
+    rows = torch.randint(0, 50, ((1 << 17) + 8, 3), generator=g,
+                         dtype=torch.int32).to(dev)
+    pc, oc = rows[:, 1].contiguous(), rows[:, 2].contiguous()
+    views = [(rows[k:, 1], rows[k:, 2]) for k in range(4)]
+    views += [(pc[k:], oc[k:]) for k in (0, 1, 3)]
+    for p, o in views:
+        for n in (0, 1, 3 * 512 + 17, 5 * 8192 + 1, (1 << 17) + 3):
+            pm, om = p[:n], o[:n]
+            head = torch.arange(n, device=dev) < n - n // 7
+            for alive in (torch.ones(n, dtype=torch.bool, device=dev),
+                          torch.zeros(n, dtype=torch.bool, device=dev),
+                          (torch.rand(n, generator=g) < 0.5).to(dev), head):
+                for prm in ((10, 20, 5, 45), (-2**31, inv, -2**31, inv),
+                            (7, 7, 0, 50)):
+                    total = int(t_sc.masked_interval_compact_plain(
+                        pm, om, alive, prm, 0)[2])
+                    for cap in {total + 8, max(total // 3, 1)}:
+                        _same(t_sc.masked_interval_compact(pm, om, alive, prm, cap),
+                              t_sc.masked_interval_compact_plain(pm, om, alive,
+                                                                 prm, cap))
 
 
 @pytest.mark.cuda

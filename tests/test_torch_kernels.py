@@ -56,19 +56,27 @@ def test_stream_compact_tiles_match_reference_oracle(n, block, density):
     _eq(counts, want_c)
     assert t_ref.ref_stream_compact is t_sc.compact_tiles_plain
 
+    # K2's single-pass compaction: the oracle's tiles, read in order, are
+    # the global compaction; a cap of half the rows is under the total at
+    # high density
     rng = np.random.default_rng(n + 1)
     p = rng.integers(0, 40, n).astype(np.int32)
     o = rng.integers(0, 40, n).astype(np.int32)
     alive = rng.random(n) < 0.8 if density else np.ones(n, bool)
     params = (5, 30, 10, I32_MAX)
-    local, counts = t_sc.masked_interval_tiles(
+    cap = n // 2 + 1
+    got = t_sc.masked_interval_compact(
         torch.as_tensor(p), torch.as_tensor(o), torch.as_tensor(alive),
-        params, block)
+        params, cap)
     hit = (p >= 5) & (p < 30) & (o >= 10) & alive
     want_l, want_c = j_ref.ref_stream_compact(jnp.asarray(_padded(hit, block, False)),
                                               block)
-    _eq(local, want_l)
-    _eq(counts, want_c)
+    idx = np.asarray(want_l)[np.asarray(want_l) != I32_MAX]
+    total = int(np.asarray(want_c).sum())
+    take = np.zeros(cap, np.int32)
+    take[:min(cap, total)] = idx[:cap]
+    for g, w in zip(got, (take, np.arange(cap) < total, np.int32(total))):
+        _eq(g, w)
 
 
 @pytest.mark.parametrize("n,block,cap", [
@@ -98,6 +106,27 @@ def test_compact_indices_match_reference_ops(n, block, cap):
     want = j_ops.masked_interval_compact(
         jnp.asarray(rows[:, 1]), jnp.asarray(rows[:, 2]), jnp.asarray(alive),
         jnp.asarray(np.asarray(params, np.int32)), cap, block=block)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("n,cap", [(0, 8), (5000, 256)])
+def test_masked_interval_compact_plain_matches_reference_ops(n, cap):
+    """K2's plain version against the JAX ``ops.masked_interval_compact``
+    (its Pallas kernel in interpret mode): an empty store, and a cap under
+    the total."""
+    rng = np.random.default_rng(n + 3)
+    rows = rng.integers(0, 30, (n, 3)).astype(np.int32)
+    alive = rng.random(n) < 0.9
+    params = (3, 17, I32_MIN, 25)
+    tr = torch.as_tensor(rows)
+    got = t_sc.masked_interval_compact_plain(tr[:, 1], tr[:, 2],
+                                             torch.as_tensor(alive), params, cap)
+    want = j_ops.masked_interval_compact(
+        jnp.asarray(rows[:, 1]), jnp.asarray(rows[:, 2]), jnp.asarray(alive),
+        jnp.asarray(np.asarray(params, np.int32)), cap)
+    assert n == 0 or int(want[2]) > cap
+    assert [g.dtype for g in got] == [torch.int32, torch.bool, torch.int32]
     for g, w in zip(got, want):
         _eq(g, w)
 

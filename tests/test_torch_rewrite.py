@@ -98,6 +98,34 @@ def test_member_compact_matches_reference(sets, n, block):
                 np.testing.assert_array_equal(counts.numpy(), np.asarray(wc))
 
 
+@pytest.mark.parametrize("n,cap,has_dom,has_rng", [
+    (0, 8, True, True),  # an empty store, both streams
+    (5000, 64, True, True),  # two streams, caps under both totals
+    (5000, 4096, True, False)])  # the subject stream alone, cap over it
+def test_member_compact_plain_matches_reference_ops(n, cap, has_dom, has_rng):
+    """K4's plain version against the JAX ``ops.rewrite_member_compact``
+    (its Pallas kernel in interpret mode)."""
+    mem, dom, rng = (_set(x, 8) for x in ([3, 5, 9, 2500], [1, 7], [2, 6, 7]))
+    spo, alive = _rows(n, seed=n + 11)
+    tid = 4
+    want = j_ops.rewrite_member_compact(
+        jnp.asarray(spo), jnp.asarray(alive), jnp.int32(tid), jnp.asarray(mem),
+        jnp.asarray(dom), jnp.asarray(rng), cap, has_dom, has_rng)
+    t = torch.as_tensor(spo)
+    got = t_sc.member_compact_plain(
+        t[:, 0], t[:, 1], t[:, 2], torch.as_tensor(alive), tid,
+        torch.as_tensor(mem), torch.as_tensor(dom), torch.as_tensor(rng),
+        has_dom, has_rng, cap)
+    got = [x for triple in got for x in triple]
+    assert len(got) == len(want) == (6 if has_rng else 3)
+    if n and cap < 100:
+        assert int(want[2]) > cap and int(want[5]) > cap
+    for g, w in zip(got, want):
+        assert g.dtype == {np.dtype(np.int32): torch.int32,
+                           np.dtype(bool): torch.bool}[np.asarray(w).dtype]
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_pass_counter_keys_match_reference():
     assert set(t_ops.reset_pass_counters()) == set(j_ops.reset_pass_counters())
     assert list(t_ops.pass_counters) == list(j_ops.pass_counters)
@@ -175,12 +203,12 @@ def test_rewrite_dual_branch_is_one_member_pass(kbs):
     sig = eng._lower(*eng._prepare(q)[0])[0]
     assert sig.extra_caps[2] and sig.extra_caps[3]  # has_dom and has_rng
     t_ops.reset_pass_counters()
-    launches = t_sc.member_tiles.launches
+    launches = t_sc.member_compact.launches
     rows, _ = eng.run(q)
     assert t_ops.pass_counters["member_compact"] == 1, t_ops.pass_counters
     assert t_ops.pass_counters["dual_compact"] == 0, t_ops.pass_counters
     assert t_ops.pass_counters["compact"] <= 1, t_ops.pass_counters
-    assert t_sc.member_tiles.launches == launches  # CPU: the plain version
+    assert t_sc.member_compact.launches == launches  # CPU: the plain version
     assert {tuple(r) for r in rows.tolist()} == want
     assert len(want) > 0
     jeng = JQueryEngine(kb=jkb.kb, spo=jkb.kb.spo, mode="rewrite", dtb=jkb.dtb)
