@@ -46,11 +46,11 @@ line:
   8. kernels  — each kernel against its plain version on the card at the
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
-                call's: event time, profiler device time and host time per
-                call, and for K1–K4 the ``kernels.ops``-level call the
-                main path makes (``ops_ms``; K1's, K2's and K4's must be
-                one launch and, in the profiler, one kernel beside its
-                memsets); then the
+                call's: event time (back to back, and behind a sleep
+                kernel), profiler device time and host time per call, and
+                for K1–K4 and K7 the ``kernels.ops``-level call (``ops_ms``;
+                K1's, K2's, K4's and K7's must be one launch and, in the
+                profiler, one kernel beside its memset); then the
                 ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–7 and read just after it (a
@@ -107,6 +107,64 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles per ms of device time, measured once."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10**7)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def event_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 4) -> float:
+    """Device time per call of ``fn`` from CUDA events around calls
+    enqueued behind a sleep kernel: the device starts the calls only once
+    the host has enqueued all of them, so it runs them back to back and the
+    events time the device work, not the host's launch cost.  The sleep
+    lasts twice the measured enqueue time (1 ms at least).  The start event
+    must still be pending after the last call is enqueued, the proof that
+    the sleep covered them; if not, the sleep grows and the calls are cut
+    to a quarter (the card holds only so many pending launches: a call of
+    many small kernels fills its queue and the host waits).  ``fn`` must
+    not wait for the device."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    cover_ms = max(1.0, 2e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(tries):
+        torch.cuda._sleep(int(cover_ms * _sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cover_ms *= 2
+        iters = max(1, iters // 4)
+    raise AssertionError(f"no sleep covered the calls' enqueue in {tries} "
+                         f"tries")
 
 
 def host_us(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -218,7 +276,7 @@ def _counters():
         "member_compact": stream_compact.member_compact,
         "merge_path_resident": merge_sorted.merge_path_resident,
         "merge_path": merge_sorted.merge_path,
-        "dual_compact_tiles": stream_compact.dual_compact_tiles,
+        "dual_compact": stream_compact.dual_compact,
         "interval_tiles": stream_compact.interval_tiles,
         "interval_filter": interval_filter.interval_filter,
         "msc_select": msc_select.msc_select,
@@ -599,6 +657,29 @@ def phase_lubm100_live(kb, raw):
     return out["small_delta_cap"]
 
 
+def msc_groups(inst, conc, dtb):
+    """K10's input from candidate (instance, concept) pairs: the distinct
+    pairs grouped by instance, -1 padded to the largest group.  Returns
+    (pairs int64 (inst << 31 | concept), each pair's group and rank in it,
+    conc int32[G, K], bounds int32[G, K])."""
+    import torch
+    from repro_torch.core.materialize import INVALID, concept_bounds
+
+    pairs = torch.unique((inst.long() << 31) | conc.long())
+    u_inst, u_conc = (pairs >> 31).int(), (pairs & INVALID).int()
+    first = torch.ones_like(u_inst, dtype=torch.bool)
+    first[1:] = u_inst[1:] != u_inst[:-1]
+    gid = torch.cumsum(first, 0) - 1
+    starts = torch.nonzero(first).squeeze(1)
+    rank = torch.arange(pairs.shape[0], device=pairs.device) - starts[gid]
+    G, K = int(starts.shape[0]), int(rank.max()) + 1
+    conc_g = torch.full((G, K), -1, dtype=torch.int32, device=pairs.device)
+    bounds_g = torch.full_like(conc_g, -1)
+    conc_g[gid, rank] = u_conc
+    bounds_g[gid, rank] = concept_bounds(dtb, u_conc)[0]
+    return pairs, gid, rank, conc_g, bounds_g
+
+
 def phase_lubm100_kernel_api(kb):
     """K7–K11 through their ``kernels.ops`` entry points on LUBM-100 data;
     returns the inputs the kernel rows time them on."""
@@ -606,7 +687,7 @@ def phase_lubm100_kernel_api(kb):
     from repro_torch.core.engine import PAPER_QUERIES
     from repro_torch.core.index import key_cols, pow2_bucket
     from repro_torch.core.materialize import (
-        INVALID, _search, candidate_types, concept_bounds,
+        INVALID, _search, candidate_types,
     )
     from repro_torch.core.materialize import msc_select as msc_sorted
     from repro_torch.core.query import (
@@ -698,7 +779,7 @@ def phase_lubm100_kernel_api(kb):
     out["dual"] = {"base_rows": base_n, "delta_rows": int(ds.delta.shape[0]),
                    "subject": int(got[0][2]), "object": int(got[1][2]),
                    "cap": cap7}
-    inputs["dual"] = (ms_b, mo_b, ops.auto_block(base_n))
+    inputs["dual"] = (ms_b, mo_b, cap7)
 
     # K11 on the full materializer's step-3 inputs: every candidate type of
     # the raw store, the sorted concept ids and their ancestor rows
@@ -721,18 +802,8 @@ def phase_lubm100_kernel_api(kb):
 
     # K10 on the distinct (instance, concept) candidates, grouped by
     # instance and -1 padded to the largest group
-    pairs = torch.unique((c_inst.long() << 31) | c_conc.long())
-    u_inst, u_conc = (pairs >> 31).int(), (pairs & INVALID).int()
-    first = torch.ones_like(u_inst, dtype=torch.bool)
-    first[1:] = u_inst[1:] != u_inst[:-1]
-    gid = torch.cumsum(first, 0) - 1
-    starts = torch.nonzero(first).squeeze(1)
-    rank = torch.arange(pairs.shape[0], device=kb.device) - starts[gid]
-    G, K = int(starts.shape[0]), int(rank.max()) + 1
-    conc_g = torch.full((G, K), -1, dtype=torch.int32, device=kb.device)
-    bounds_g = torch.full_like(conc_g, -1)
-    conc_g[gid, rank] = u_conc
-    bounds_g[gid, rank] = concept_bounds(dtb, u_conc)[0]
+    pairs, gid, rank, conc_g, bounds_g = msc_groups(c_inst, c_conc, dtb)
+    G, K = conc_g.shape
     keep = ops.msc_select(conc_g, bounds_g)
     kept = pairs[keep[gid, rank]]
     inst_s, conc_s, keep_s = msc_sorted(inst, conc, explicit, dtb)[:3]
@@ -808,15 +879,18 @@ def _row(name, source, replaces, launches, err, kernel, plain, library,
          bytes_moved, ops=None, ops_library=None):
     """One kernel row: ``ms`` (CUDA events around back-to-back calls: the
     larger of the device time and the wrapper's host cost per call),
-    ``device_ms`` (the profiler's device time per call) and ``host_us``
-    (enqueue time per call), each for the library call too; ``ops_ms``
+    ``event_ms`` (CUDA events around calls enqueued behind a sleep kernel:
+    the device time alone), ``device_ms`` (the profiler's device time per
+    call) and ``host_us`` (enqueue time per call), each for the library
+    call too but ``event_ms``; ``ops_ms``
     times the ``kernels.ops``-level call the main path makes around the
     kernel, ``ops_library_ms`` the same function in library calls (K1's
     plain version is already that: ``torch.nonzero`` and a cut)."""
     split = device_split(kernel)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
-           "ms": time_ms(kernel), "device_ms": sum(split.values()) or None,
+           "ms": time_ms(kernel), "event_ms": event_ms(kernel),
+           "device_ms": sum(split.values()) or None,
            "host_us": host_us(kernel), "plain_ms": time_ms(plain),
            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes",
@@ -1238,28 +1312,46 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
                    sc.interval_tiles_plain(ip[:m], io[:m], prm, blk))
             edge_checks += 2
 
-    # -- K7 at the raw base's Q1 member masks (the phase's largest call) --
-    ma, mb_, dblock = api["dual"]
+    # -- K7 at the raw base's Q1 member masks (the phase's largest call),
+    # at the phase's cap --
+    ma, mb_, cap7 = api["dual"]
     nd = ma.shape[0]
-    nbd = sc.n_tiles(nd, dblock)
-    err = _exact("dual_compact_tiles",
-                 flat(sc.dual_compact_tiles(ma, mb_, dblock)),
-                 flat(sc.dual_compact_tiles_plain(ma, mb_, dblock)))
+    err = _exact("dual_compact", flat(sc.dual_compact(ma, mb_, cap7)),
+                 flat(sc.dual_compact_plain(ma, mb_, cap7)))
+
+    def k7_ops():
+        return ops.dual_compact_indices(ma, mb_, cap7)
+
     rows.append(_row(
-        "dual_compact_tiles", src + "stream_compact.cu",
-        ref + "stream_compact.py:310", launches["dual_compact_tiles"], err,
-        lambda: sc.dual_compact_tiles(ma, mb_, dblock),
-        lambda: sc.dual_compact_tiles_plain(ma, mb_, dblock), None,
-        2 * nd + 2 * (4 * nbd * dblock + 4 * nbd)))
-    for m, blk in ((0, 512), (1, 512), (3 * 512 + 17, 512), (5 * 4096 + 1, 4096)):
+        "dual_compact", src + "stream_compact.cu",
+        ref + "stream_compact.py:310", launches["dual_compact"], err,
+        lambda: sc.dual_compact(ma, mb_, cap7),
+        lambda: sc.dual_compact_plain(ma, mb_, cap7),
+        lambda: (torch.nonzero(ma), torch.nonzero(mb_)),
+        2 * nd + 2 * (5 * cap7 + 4), ops=k7_ops))
+    rows[-1]["cap"] = cap7
+    rows[-1]["ops_device_split"] = _one_launch(
+        "dual_compact_indices", k7_ops, "dual_compact", "dual_compact")
+    # K7 edges: n = 0, n < 16, ragged tiles, all and no rows set; masks at
+    # offsets from 16 bytes that differ (b read with two loads per 16 rows)
+    # and agree; 2**24 + 3 rows; cap 0, caps under and over each total
+    big = torch.rand((1 << 24) + 18, generator=gen, device=dev) < 0.5
+    k7_edges = []
+    for m in (0, 1, 7, 15, 3 * 512 + 17, 5 * 4096 + 1, 70_001):
         ones = torch.ones(m, dtype=torch.bool, device=dev)
         rand = torch.rand(m, generator=gen, device=dev) < 0.5
-        for a, b in ((ones, ~ones), (~ones, ones), (rand, ma[:m]),
-                     (ma[:m], mb_[:m])):
-            _exact("dual_compact_tiles edge",
-                   flat(sc.dual_compact_tiles(a, b, blk)),
-                   flat(sc.dual_compact_tiles_plain(a, b, blk)))
+        k7_edges += [(ones, ~ones), (~ones, ones), (rand, ma[:m]),
+                     (ma[:m], mb_[:m]), (big[1:m + 1], big[3:m + 3]),
+                     (big[5:m + 5], rand), (big[2:m + 2], big[18:m + 18])]
+    k7_edges += [(big[: (1 << 24) + 3], big[3: (1 << 24) + 6]),
+                 (big[7: (1 << 24) + 10], big[: (1 << 24) + 3].clone())]
+    for a, b in k7_edges:
+        totals = [int(t[2]) for t in sc.dual_compact_plain(a, b, 0)]
+        for c in {0, pow2_bucket(max(totals)), max(min(totals) // 3, 1)}:
+            _exact("dual_compact edge", flat(sc.dual_compact(a, b, c)),
+                   flat(sc.dual_compact_plain(a, b, c)))
             edge_checks += 1
+    del big
 
     # -- K11 at the full materializer's step-3 inputs --
     cq, cids, canc = api["closure"]
@@ -1296,14 +1388,22 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         launches["msc_select"], err,
         lambda: msc.msc_select(conc_g, bounds_g),
         lambda: msc.msc_select_plain(conc_g, bounds_g), None, 9 * G * K))
-    for g_e, k_e in ((0, 4), (1, 1), (1000, 1), (37, 33), (64, 33), (3, 300)):
-        ce_ = torch.randint(-1, 500, (g_e, k_e), generator=gen, device=dev,
-                            dtype=torch.int32)
-        be_ = ce_ + torch.randint(1, 64, (g_e, k_e), generator=gen,
+    # K10 edges: each template boundary (exact K up to 8, buckets of 16 and
+    # 32), the generic kernel past them (K = 33, 300) and past its staging
+    # (7,000), G = 0, partial last tiles, and views one group in (off
+    # 16-byte alignment unless 4K is a multiple of 16)
+    for g_e, k_e in ((0, 4), (1, 1), (1000, 1), (37, 33), (64, 33), (3, 300),
+                     (0, 6), (0, 17), (300, 6), (257, 8), (129, 9),
+                     (130, 16), (65, 17), (70, 32), (5, 7000)):
+        ce_ = torch.randint(-1, 500, (g_e + 1, k_e), generator=gen,
+                            device=dev, dtype=torch.int32)
+        be_ = ce_ + torch.randint(1, 64, (g_e + 1, k_e), generator=gen,
                                   device=dev, dtype=torch.int32)
-        _exact("msc_select edge", [msc.msc_select(ce_, be_)],
-               [msc.msc_select_plain(ce_, be_)])
-        edge_checks += 1
+        for c_, b_ in ((ce_[:g_e].clone(), be_[:g_e].clone()),
+                       (ce_[1:], be_[1:])):
+            _exact("msc_select edge", [msc.msc_select(c_, b_)],
+                   [msc.msc_select_plain(c_, b_)])
+            edge_checks += 1
     _exact("msc_select edge", [msc.msc_select(conc_g[:1001], bounds_g[:1001])],
            [msc.msc_select_plain(conc_g[:1001], bounds_g[:1001])])
     edge_checks += 1
@@ -1316,7 +1416,7 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
                      "resident_a": int(pos.shape[0]), "resident_b": small_cap,
                      "member_rows": nr,
                      "interval_rows": ni, "interval_block": iblock,
-                     "dual_rows": nd, "dual_block": dblock,
+                     "dual_rows": nd, "dual_cap": cap7,
                      "closure_queries": nq, "closure_concepts": cids.numel(),
                      "closure_depth": D, "msc_groups": G, "msc_k": K},
           "member_compact_one_stream": member[1],
@@ -1351,7 +1451,7 @@ def main() -> int:
                             "merge_path_resident", "merge_path"))
     del raw
     api = drive(launches, phase_lubm100_kernel_api, kb100,
-                need=("pair_search", "dual_compact_tiles", "interval_tiles",
+                need=("pair_search", "dual_compact", "interval_tiles",
                       "interval_filter", "msc_select", "closure_expand",
                       "pass/dual_compact"))
     phase_kernels(kb1, kb100, launches, small_cap, api)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time the single-pass compactions (K1, K2, K4) at LUBM-100's shapes on
-one GPU, beside two yardsticks of the card's streaming rate over the same
-store: a copy of the lite store and the interval filter (K9), which read
-the same rows and keep nothing.
+"""Time the single-pass compactions (K1, K2, K4, and K7 through its
+``ops`` entry point) and the kernel-API kernels K10 and K11 at LUBM-100's
+shapes on one GPU, beside two yardsticks of the card's streaming rate over
+the same store: a copy of the lite store and the interval filter (K9),
+which read the same rows and keep nothing.
 
     python3 scripts/bench_compaction.py [SRC]
 
 ``SRC`` (default: the checkout's ``src``) is the directory to import
 ``repro_torch`` from, so a copy of the tree with a changed kernel can be
-timed against this one on the same card, one process each.  Prints one
-``name {json}`` line per measurement: ``ms`` (CUDA events per call),
-``split`` (profiler device ms per call by kernel name) and, for K2 and K4,
-the match totals and the cap.  Needs a CUDA device; builds LUBM-100 (seed
-0) first, about 20 s.
+timed against this one on the same card, one process each; K7, K10 and
+K11 are timed through calls every tree since K7's port has
+(``ops.dual_compact_indices``, ``msc_select``, ``closure_expand``).
+Prints one ``name {json}`` line per measurement: ``ms`` (CUDA events per
+call, back to back), ``event_ms`` (CUDA events around calls enqueued
+behind a sleep kernel: the device time alone), ``split`` (profiler device
+ms per call by kernel name) and, for the compactions, the match totals and
+the cap.  Needs a CUDA device; builds LUBM-100 (seed 0) first, about 20 s.
 """
 from __future__ import annotations
 
@@ -33,8 +37,13 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.core.engine import PAPER_QUERIES, KnowledgeBase
+    from repro_torch.core.index import pow2_bucket
+    from repro_torch.core.materialize import INVALID, candidate_types
     from repro_torch.core.query import QueryEngine
+    from repro_torch.kernels import closure_expand as ce
     from repro_torch.kernels import interval_filter as itf
+    from repro_torch.kernels import msc_select as msc
+    from repro_torch.kernels import ops
     from repro_torch.kernels import stream_compact as sc
     from repro_torch.rdf.generator import generate_lubm
 
@@ -47,7 +56,7 @@ def main() -> int:
     out = {}
 
     def timed(name, fn, **extra):
-        out[name] = {"ms": cs.time_ms(fn, 50),
+        out[name] = {"ms": cs.time_ms(fn, 50), "event_ms": cs.event_ms(fn, 50),
                      "split": cs.device_split(fn, 50), **extra}
 
     # the yardsticks: the lite store's rows copied, and filtered (K9)
@@ -104,6 +113,42 @@ def main() -> int:
                   [t for x in sc.member_compact_plain(*args) for t in x])
         timed(name, lambda a=args: sc.member_compact(*a),
               totals=[int(x[2]) for x in got], cap=args[-1])
+
+    # K7 through ops.dual_compact_indices: Q1's Professor member masks over
+    # the raw store (both fresh, so at one alignment), mask b one byte off
+    # (two loads per 16 rows), both one byte off (one each), and no writes
+    tid, mem, dom, rng, has_dom, has_rng = cs._rewrite_sets(
+        reng, PAPER_QUERIES["Q1"])
+    ms_, mo_ = sc.member_masks(*cols, ralive, tid, mem, dom, rng, has_dom,
+                               has_rng)
+    cap7 = pow2_bucket(max(int(ms_.sum()), int(mo_.sum())))
+
+    def off1(m):
+        return torch.cat([m[:1], m])[1:]
+
+    for name, a, b, c in (("k7_ops", ms_, mo_, cap7),
+                          ("k7_ops_b_off1", ms_, off1(mo_), cap7),
+                          ("k7_ops_both_off1", off1(ms_), off1(mo_), cap7),
+                          ("k7_ops_cap0", ms_, mo_, 0)):
+        got = ops.dual_compact_indices(a, b, c)
+        want = sc.compact_mask_plain(a, c) + sc.compact_mask_plain(b, c)
+        cs._exact(name, got, want)
+        timed(name, lambda a=a, b=b, c=c: ops.dual_compact_indices(a, b, c),
+              totals=[int(got[2]), int(got[5])], cap=c)
+
+    # K10 on the candidate types grouped by instance; K11 on the candidate
+    # types' concepts (phase lubm100_kernel_api's inputs)
+    inst, conc, _ = candidate_types(raw, kb.dtb)
+    cvalid = inst != INVALID
+    c_inst, c_conc = inst[cvalid], conc[cvalid]
+    conc_g, bounds_g = cs.msc_groups(c_inst, c_conc, kb.dtb)[3:]
+    cs._exact("k10", [msc.msc_select(conc_g, bounds_g)],
+              [msc.msc_select_plain(conc_g, bounds_g)])
+    timed("k10", lambda: msc.msc_select(conc_g, bounds_g),
+          shape=list(conc_g.shape))
+    ids, anc = kb.dtb.concept_sorted_ids, kb.dtb.concept_ancestors
+    timed("k11", lambda: ce.closure_expand(c_conc, ids, anc),
+          shape=[int(c_conc.shape[0]), int(anc.shape[1])])
     for name, v in out.items():
         print(name, json.dumps(v), flush=True)
     return 0

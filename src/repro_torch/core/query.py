@@ -300,7 +300,7 @@ def _dual_masked_compact_both(ds, ms_b, mo_b, ms_d, mo_d, cap: int):
     """Compact both rewrite branches of each source in one dual-mask pass.
 
     The subject-binding and object-binding masks cover the same rows, so
-    the dual-mask kernel emits both compacted streams per tile.  Returns
+    one launch of the dual-mask kernel compacts both.  Returns
     the two stitched (take, ok, total) triples in combined [base | delta]
     coordinates.  No query path calls it: rewrite mode compacts through
     ``ops.rewrite_member_compact``, which evaluates the masks in the same
@@ -527,7 +527,11 @@ def _lower_scan(pvars, terms, extra, mode: str, device):
 
 
 def _lexsort(cols):
-    """Stable sort permutation by ``cols`` (cols[0] is the primary key)."""
+    """Stable sort permutation by ``cols`` (cols[0] is the primary key).
+    No column (a variable-free pattern's ``distinct``) raises the
+    reference's ``TypeError``, as ``jnp.lexsort`` does."""
+    if not cols:
+        raise TypeError("need sequence of keys with len > 0 in lexsort")
     if len(cols) == 1:
         return torch.sort(cols[0], stable=True).indices
     perm = torch.sort(pair_key(cols[-2], cols[-1]), stable=True).indices

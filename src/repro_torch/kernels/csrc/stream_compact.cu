@@ -4,9 +4,12 @@
 //    predicate, that writes ops' contract itself, per output stream:
 //    take[r] = the index of the r-th matching row for r < min(total, cap),
 //    0 behind; ok[r] = r < total; total = the number of matching rows.
-//    Described below, before its code.  Three TPU kernels of
+//    Described below, before its code.  Four TPU kernels of
 //    src/repro/kernels/stream_compact.py become its predicates:
-//   * stream_compact_pallas           (MaskBits: a precomputed 0/1 mask)
+//   * stream_compact_pallas           (MaskBits<1>: a precomputed 0/1 mask)
+//   * dual_compact_pallas             (MaskBits<2>: two precomputed 0/1
+//                                      masks over the same rows, each
+//                                      compacted into its own stream)
 //   * masked_interval_compact_pallas  (IntervalPred<true>: plo <= p < phi
 //                                      && olo <= o < ohi && alive)
 //   * member_compact_pallas           (MemberPred: the rewrite-mode type
@@ -16,18 +19,15 @@
 //                                      each && alive && s != INVALID)
 //
 // 2. compact_tiles — tile-local compaction fused with a predicate,
-//    replacing two TPU kernels of the same file:
+//    replacing one TPU kernel of the same file:
 //   * interval_compact_pallas         (IntervalPred<false>: the interval
 //                                      predicate without alive)
-//   * dual_compact_pallas             (two precomputed 0/1 masks over the
-//                                      same rows, each compacted into its
-//                                      own stream in one pass)
-//    Contract (ref_stream_compact), per stream: tile t covers rows
-//    [t*block, (t+1)*block).  Its output slice local[t*block : (t+1)*block]
-//    holds the global indices of the tile's matching rows in ascending
-//    order, INVALID (INT32_MAX) behind them, and counts[t] is the tile's
-//    match count; kernels/ops.py stitches the tiles.  Rows >= n are padding
-//    and never match, so the caller passes the unpadded columns.
+//    Contract (ref_stream_compact): tile t covers rows [t*block,
+//    (t+1)*block).  Its output slice local[t*block : (t+1)*block] holds
+//    the global indices of the tile's matching rows in ascending order,
+//    INVALID (INT32_MAX) behind them, and counts[t] is the tile's match
+//    count; kernels/ops.py stitches the tiles.  Rows >= n are padding and
+//    never match, so the caller passes the unpadded columns.
 //
 // What bounds both on the H100: device memory.  Per row they read a mask
 // (1 B per stream), or p and o (by stride from the [N, 3] store rows, so
@@ -97,6 +97,33 @@ __device__ __forceinline__ unsigned mask16(const uint8_t* m, int64_t r0,
   return h;
 }
 
+// Bits of rows r0 .. r0 + 15 (any r0) of a 0/1 byte column at any
+// alignment that are set and lie in [0, n).  Whole rows off a 16-byte
+// boundary are read as the two aligned 16-byte words that hold them (32
+// bits, shifted by the offset): both lie in the 16-byte blocks of the
+// rows, so no load leaves the column's pages.  Whole aligned rows take
+// mask16's one load; the ragged head and tail go byte by byte.
+__device__ __forceinline__ unsigned mask16_any(const uint8_t* m, int64_t r0,
+                                               int64_t n) {
+  if (r0 < 0 || r0 + kRowsPerThread > n) {
+    unsigned h = 0;
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int64_t r = r0 + k;
+      if (r >= 0 && r < n && __ldg(m + r) != 0) h |= 1u << k;
+    }
+    return h;
+  }
+  const int off = (int)(reinterpret_cast<uintptr_t>(m + r0) & 15);
+  if (off == 0) return mask16(m, r0, n);
+  const uint4* w = reinterpret_cast<const uint4*>(m + r0 - off);
+  const uint4 lo = __ldg(w), hi = __ldg(w + 1);
+  const unsigned all = nibble(lo.x) | nibble(lo.y) << 4 | nibble(lo.z) << 8 |
+                       nibble(lo.w) << 12 | nibble(hi.x) << 16 |
+                       nibble(hi.y) << 20 | nibble(hi.z) << 24 |
+                       nibble(hi.w) << 28;
+  return (all >> off) & 0xffffu;
+}
+
 // The hits of a lane's 16 rows v0 .. v0 + 15, per stream, for a predicate
 // over strided columns ANDed with alive; called by all 32 lanes of a warp
 // together, v0 being the warp's first row w0 (< n) plus 16 * lane.  Read
@@ -144,17 +171,6 @@ __device__ __forceinline__ void warp_bits(const Pred& pred, int64_t v0,
   for (int st = 0; st < NS; ++st) b[st] &= live;
 }
 
-// Two masks over the same rows: stream 0 compacts a, stream 1 compacts b.
-struct DualMaskPred {
-  static constexpr int kStreams = 2;
-  const uint8_t* a;
-  const uint8_t* b;
-  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
-    hit[0] = __ldg(a + i) != 0;
-    hit[1] = __ldg(b + i) != 0;
-  }
-};
-
 // plo <= p < phi && olo <= o < ohi, and && alive when Masked.  compact_tiles
 // tests it row by row (K8); compact_lookback 16 rows a lane (K2, Masked).
 template <bool Masked>
@@ -171,10 +187,10 @@ struct IntervalPred {
   __device__ __forceinline__ bool in_range(int32_t pv, int32_t ov) const {
     return pv >= plo && pv < phi && ov >= olo && ov < ohi;
   }
-  __device__ __forceinline__ void operator()(int64_t i, bool* hit) const {
-    bool m = in_range(__ldg(p + i * stride), __ldg(o + i * stride));
-    if constexpr (Masked) m = m && __ldg(alive + i) != 0;
-    hit[0] = m;
+  // Row by row, for compact_tiles (K8).
+  __device__ __forceinline__ bool operator()(int64_t i) const {
+    static_assert(!Masked, "compact_tiles takes the predicate without alive");
+    return in_range(__ldg(p + i * stride), __ldg(o + i * stride));
   }
 
   struct Rows {
@@ -305,69 +321,40 @@ struct MemberPred {
   }
 };
 
-template <int NS>
-struct Outputs {
-  int32_t* local[NS];
-  int32_t* counts[NS];
-};
-
 template <typename Pred>
 __global__ void __launch_bounds__(kThreads)
-compact_tiles(Pred pred, int64_t n, int block, Outputs<Pred::kStreams> out) {
-  constexpr int NS = Pred::kStreams;
-  __shared__ int warp_counts[NS][kWarps];
+compact_tiles(Pred pred, int64_t n, int block, int32_t* local,
+              int32_t* counts) {
+  __shared__ int warp_counts[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t tile0 = (int64_t)blockIdx.x * block;
-  int running[NS];  // matches of this tile's earlier chunks, per stream
-#pragma unroll
-  for (int st = 0; st < NS; ++st) running[st] = 0;
+  int running = 0;  // matches of this tile's earlier chunks
   for (int c = 0; c < block; c += kThreads) {
     const int j = c + (int)threadIdx.x;
     const int64_t row = tile0 + j;
-    bool hit[NS];
-#pragma unroll
-    for (int st = 0; st < NS; ++st) hit[st] = false;
-    if (j < block && row < n) pred(row, hit);
-    unsigned ballot[NS];
-#pragma unroll
-    for (int st = 0; st < NS; ++st) {
-      ballot[st] = __ballot_sync(kFull, hit[st]);
-      if (lane == 0) warp_counts[st][warp] = __popc(ballot[st]);
-    }
+    const bool hit = j < block && row < n && pred(row);
+    const unsigned ballot = __ballot_sync(kFull, hit);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
     __syncthreads();
+    int before = 0, total = 0;
 #pragma unroll
-    for (int st = 0; st < NS; ++st) {
-      int before = 0, total = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int v = warp_counts[st][w];
-        before += w < warp ? v : 0;
-        total += v;
-      }
-      if (hit[st]) {
-        out.local[st][tile0 + running[st] + before +
-                      __popc(ballot[st] & ((1u << lane) - 1u))] = (int32_t)row;
-      }
-      running[st] += total;
+    for (int w = 0; w < kWarps; ++w) {
+      const int v = warp_counts[w];
+      before += w < warp ? v : 0;
+      total += v;
     }
+    if (hit) {
+      local[tile0 + running + before +
+            __popc(ballot & ((1u << lane) - 1u))] = (int32_t)row;
+    }
+    running += total;
     __syncthreads();  // warp_counts is rewritten by the next chunk
   }
-#pragma unroll
-  for (int st = 0; st < NS; ++st) {
-    for (int j = running[st] + (int)threadIdx.x; j < block; j += kThreads) {
-      out.local[st][tile0 + j] = kInvalid;
-    }
-    if (threadIdx.x == 0) out.counts[st][blockIdx.x] = running[st];
+  for (int j = running + (int)threadIdx.x; j < block; j += kThreads) {
+    local[tile0 + j] = kInvalid;
   }
-}
-
-template <typename Pred>
-int launch(const Pred& pred, long long n, int block, int nb,
-           Outputs<Pred::kStreams> out, void* stream) {
-  compact_tiles<Pred><<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      pred, n, block, out);
-  return (int)cudaGetLastError();
+  if (threadIdx.x == 0) counts[blockIdx.x] = running;
 }
 
 // ---------------------------------------------------------------------------
@@ -376,7 +363,7 @@ int launch(const Pred& pred, long long n, int block, int nb,
 // or two output streams.
 //
 // What bounds it on the H100: device memory — the predicate's bytes per row
-// (1 B of mask; 13 B for K2's and K4's store rows, every sector of p and o
+// (1 B per mask; 13 B for K2's and K4's store rows, every sector of p and o
 // or of s, p and o, and alive), 4 B of take and 1 B of ok written per
 // output slot (cap of each per stream), 4 B of total per stream.
 //
@@ -421,31 +408,28 @@ int launch(const Pred& pred, long long n, int block, int nb,
 //     look-back state lie in one buffer that the entry point zeroes
 //     beforehand (one memset on the same stream), so slots past total
 //     read 0 / false.
-// Rows are addressed as virtual rows v = row + shift.  For a mask, shift is
-// the pointer's offset from a 16-byte boundary (a view such as keep[1:]),
-// so every thread's 16 rows are one aligned load; the segments holding the
-// ragged head (v < shift) and tail (row >= n) load byte by byte.  Strided
-// columns are read 4 bytes at a time, at any alignment, with shift 0.
+// Rows are addressed as virtual rows v = row + shift.  For a mask (the
+// first of K7's two), shift is the pointer's offset from a 16-byte boundary
+// (a view such as keep[1:]), so every thread's 16 rows are one aligned
+// load; the segments holding the ragged head (v < shift) and tail (row >=
+// n) load byte by byte.  Strided columns are read 4 bytes at a time, at any
+// alignment, with shift 0.
 
+// K1 and K7: NS precomputed 0/1 masks over the same rows, stream st
+// compacting mask[st].  Rows are shifted by mask[0]'s offset, so its whole
+// rows are one aligned load; another mask is read at its own alignment:
+// one load too where its offset is mask[0]'s, else two (mask16_any).
+template <int NS>
 struct MaskBits {
-  static constexpr int kStreams = 1;
-  const uint8_t* mask;
+  static constexpr int kStreams = NS;
+  const uint8_t* mask[NS];
   int64_t n;
   int shift;  // virtual rows before row 0
   __device__ __forceinline__ void stage(int32_t*) {}
-  // Hits of virtual rows v0 .. v0 + 15 (v0 a multiple of 16) as 16 bits.
+  // Hits of virtual rows v0 .. v0 + 15 (v0 a multiple of 16), 16 bits a mask.
   __device__ __forceinline__ void bits(int64_t v0, unsigned* b) const {
-    const int64_t r0 = v0 - shift;
-    if (r0 >= 0) {
-      b[0] = mask16(mask, r0, n);
-      return;
-    }
-    unsigned h = 0;  // the ragged head, before the mask's first row
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const int64_t r = r0 + k;
-      if (r >= 0 && r < n && __ldg(mask + r) != 0) h |= 1u << k;
-    }
-    b[0] = h;
+#pragma unroll
+    for (int st = 0; st < NS; ++st) b[st] = mask16_any(mask[st], v0 - shift, n);
   }
 };
 
@@ -638,12 +622,13 @@ int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
 
 }  // namespace
 
-// The look-back entries (compact_mask, masked_interval_compact,
-// member_compact) share their output arguments: one buffer of zero_bytes
-// starting at take, which the entry zeroes, holds take (int32[S * cap]),
-// ok (uint8[S * cap]), total (int32[S]) and scratch (scratch_words >=
-// S * ceil((n + 15) / 8192) + 1 int64 words: the ticket, then each
-// stream's tile status words), S being the number of output streams.
+// The look-back entries (compact_mask, dual_compact_mask,
+// masked_interval_compact, member_compact) share their output arguments:
+// one buffer of zero_bytes starting at take, which the entry zeroes, holds
+// take (int32[S * cap]), ok (uint8[S * cap]), total (int32[S]) and scratch
+// (scratch_words >= S * ceil((n + 15) / 8192) + 1 int64 words: the ticket,
+// then each stream's tile status words), S being the number of output
+// streams.
 
 // mask: uint8[n] (torch.bool), any alignment, n < 2**31.
 extern "C" int compact_mask(const void* mask, long long n, long long cap,
@@ -652,7 +637,21 @@ extern "C" int compact_mask(const void* mask, long long n, long long cap,
                             void* stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const int shift = (int)(reinterpret_cast<uintptr_t>(m) & 15);
-  MaskBits pred{m, n, shift};
+  MaskBits<1> pred{{m}, n, shift};
+  return launch_lookback(pred, n + shift, cap, take, ok, total, scratch,
+                         scratch_words, zero_bytes, 0, stream);
+}
+
+// mask_a, mask_b: uint8[n] (torch.bool), each at any alignment, n < 2**31;
+// stream 0 compacts mask_a, stream 1 mask_b.
+extern "C" int dual_compact_mask(const void* mask_a, const void* mask_b,
+                                 long long n, long long cap, void* take,
+                                 void* ok, void* total, void* scratch,
+                                 long long scratch_words, long long zero_bytes,
+                                 void* stream) {
+  const uint8_t* a = static_cast<const uint8_t*>(mask_a);
+  const int shift = (int)(reinterpret_cast<uintptr_t>(a) & 15);
+  MaskBits<2> pred{{a, static_cast<const uint8_t*>(mask_b)}, n, shift};
   return launch_lookback(pred, n + shift, cap, take, ok, total, scratch,
                          scratch_words, zero_bytes, 0, stream);
 }
@@ -683,24 +682,10 @@ extern "C" int interval_compact(const void* p, const void* o, long long stride,
   IntervalPred<false> pred{static_cast<const int32_t*>(p),
                            static_cast<const int32_t*>(o), stride, nullptr,
                            plo, phi, olo, ohi, n};
-  Outputs<1> out{{static_cast<int32_t*>(local)}, {static_cast<int32_t*>(counts)}};
-  return launch(pred, n, block, nb, out, stream);
-}
-
-// mask_a, mask_b: uint8[n] (torch.bool); stream a -> local_a/counts_a,
-// stream b -> local_b/counts_b, each int32[nb * block] / int32[nb].
-extern "C" int dual_compact(const void* mask_a, const void* mask_b,
-                            long long n, int block, int nb, void* local_a,
-                            void* counts_a, void* local_b, void* counts_b,
-                            void* stream) {
-  DualMaskPred pred{static_cast<const uint8_t*>(mask_a),
-                    static_cast<const uint8_t*>(mask_b)};
-  Outputs<2> out;
-  out.local[0] = static_cast<int32_t*>(local_a);
-  out.counts[0] = static_cast<int32_t*>(counts_a);
-  out.local[1] = static_cast<int32_t*>(local_b);
-  out.counts[1] = static_cast<int32_t*>(counts_b);
-  return launch(pred, n, block, nb, out, stream);
+  compact_tiles<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pred, n, block, static_cast<int32_t*>(local),
+      static_cast<int32_t*>(counts));
+  return (int)cudaGetLastError();
 }
 
 // s, p, o: int32 columns with ``stride`` elements between rows; alive:

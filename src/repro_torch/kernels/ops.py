@@ -7,7 +7,7 @@ kernel module (stream_compact.py, pair_search.py, merge_sorted.py,
 interval_filter.py, msc_select.py, closure_expand.py), which runs the CUDA
 kernel on a CUDA tensor and the plain version on a CPU one.
 The helpers with no kernel (``segment_positions``, ``two_source_gather``,
-the tile stitch of K7's and K8's compactions) are plain torch.
+the tile stitch of K8's compaction) are plain torch.
 """
 from __future__ import annotations
 
@@ -221,12 +221,13 @@ def dual_compact_indices(mask_a, mask_b, cap: int, block: int = 512):
     """Stable compaction of two bool masks over the same rows in one pass.
 
     Returns (take_a, ok_a, total_a, take_b, ok_b, total_b), each triple
-    what ``compact_indices`` returns for its mask.
+    what ``compact_indices`` returns for its mask.  One single-pass kernel
+    writes both streams; ``block``, the reference's tile size, changes
+    nothing in the result.
     """
     _bump_pass("dual_compact")
-    (la, ca), (lb, cb) = _sc.dual_compact_tiles(mask_a, mask_b, block)
-    return (*_assemble_compact(la, ca, cap, block),
-            *_assemble_compact(lb, cb, cap, block))
+    a, b = _sc.dual_compact(mask_a, mask_b, cap)
+    return (*a, *b)
 
 
 def rewrite_member_compact(spo, alive, tid: int, mem, dom, rng, cap: int,

@@ -1,6 +1,6 @@
 """Stable stream compaction: the CUDA kernels and their plain versions.
 
-Three wrappers launch the single-pass compaction (``csrc/stream_compact.cu``'s
+Four wrappers launch the single-pass compaction (``csrc/stream_compact.cu``'s
 ``compact_lookback``, one predicate each) and return ``ops``' contract
 themselves, per output stream: ``take int32[cap]`` (the indices of the
 first ``cap`` matching rows, 0 behind), ``ok bool[cap]`` (slot < total)
@@ -8,6 +8,8 @@ and ``total`` (int32, 0-d):
 
   * ``compact_mask``            — a bool mask (the port of
     ``stream_compact_pallas``),
+  * ``dual_compact``            — two bool masks over the same rows, each
+    compacted into its own stream (the port of ``dual_compact_pallas``),
   * ``masked_interval_compact`` — ``plo <= p < phi and olo <= o < ohi and
     alive`` per row (the port of ``masked_interval_compact_pallas``),
   * ``member_compact``          — the rewrite-mode type pattern (the port
@@ -21,21 +23,15 @@ In the last two, ``p``/``o`` (and ``s``) may be strided column views of an
 zeroes the outputs and the look-back state and launches the kernel; no
 torch op follows it.
 
-Two wrappers share the tile-local kernel (``compact_tiles``), each fusing a
-predicate with a compaction per tile:
-
-  * ``interval_tiles``     — the interval predicate without ``alive`` (the
-    port of ``interval_compact_pallas``),
-  * ``dual_compact_tiles`` — two precomputed bool masks over the same
-    rows, each compacted into its own stream in one pass (the port of
-    ``dual_compact_pallas``).
-
-Each of their streams is ``(local int32[nb * block], counts int32[nb])``
-with the contract of ``ref_stream_compact`` (``compact_tiles_plain``): tile
-t's slice holds the global indices of its matching rows in ascending
-order, INVALID behind them.  Rows past the input length are padding and
-never match; an empty input still yields one (all-padding) tile.
-kernels/ops.py stitches the tiles.
+One wrapper launches the tile-local kernel (``compact_tiles``), fusing a
+predicate with a compaction per tile: ``interval_tiles``, the interval
+predicate without ``alive`` (the port of ``interval_compact_pallas``).
+Its output is ``(local int32[nb * block], counts int32[nb])`` with the
+contract of ``ref_stream_compact`` (``compact_tiles_plain``): tile t's
+slice holds the global indices of its matching rows in ascending order,
+INVALID behind them.  Rows past the input length are padding and never
+match; an empty input still yields one (all-padding) tile.  kernels/ops.py
+stitches the tiles.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel (counted in ``<wrapper>.launches``) or raises.
@@ -64,8 +60,8 @@ _INTERVAL = build.Entry("stream_compact", "interval_compact",
 _MEMBER = build.Entry("stream_compact", "member_compact",
                       [_P, _P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
                        _L, *_OUT])
-_DUAL = build.Entry("stream_compact", "dual_compact",
-                    [_P, _P, _L, _I, _I, _P, _P, _P, _P, _P])
+_DUAL_MASK = build.Entry("stream_compact", "dual_compact_mask",
+                         [_P, _P, _L, *_OUT])
 _TILE_ROWS = 8192  # compact_lookback's rows per tile
 
 
@@ -315,32 +311,36 @@ member_compact.launches = 0
 
 
 def dual_compact_tiles_plain(mask_a, mask_b, block: int):
-    """Plain version: the plain compaction of each mask."""
+    """The tile contract of each mask (``ref_dual_compact``'s body)."""
     return [compact_tiles_plain(mask_a, block),
             compact_tiles_plain(mask_b, block)]
 
 
-def dual_compact_tiles(mask_a: torch.Tensor, mask_b: torch.Tensor,
-                       block: int):
-    """Two bool[n] masks over the same rows -> [stream a, stream b]."""
-    _check_block(block)
+def dual_compact_plain(mask_a, mask_b, cap: int):
+    """Plain version: the plain compaction of each mask."""
+    return [compact_mask_plain(mask_a, cap), compact_mask_plain(mask_b, cap)]
+
+
+def dual_compact(mask_a: torch.Tensor, mask_b: torch.Tensor, cap: int):
+    """Two bool[n] masks over the same rows -> [(take int32[cap], ok
+    bool[cap], total int32 0-d)] for a, then for b, in one pass.
+
+    Both masks must be contiguous, each at any alignment (views such as
+    ``m[1:]`` beside ``m[3:]`` are read in place).
+    """
     if mask_a.device.type == "cpu":
-        return dual_compact_tiles_plain(mask_a, mask_b, block)
+        return dual_compact_plain(mask_a, mask_b, cap)
     dev = build.require_cuda(mask_a, mask_b)
     if any(m.dtype != torch.bool or m.dim() != 1 or not m.is_contiguous()
            for m in (mask_a, mask_b)) or mask_b.shape != mask_a.shape:
-        raise ValueError("dual_compact_tiles takes two contiguous bool[n] "
-                         "masks of one length")
+        raise ValueError("dual_compact takes two contiguous bool[n] masks "
+                         "of one length")
     n = mask_a.shape[0]
-    nb = n_tiles(n, block)
-    outs = [(torch.empty(nb * block, dtype=torch.int32, device=dev),
-             torch.empty(nb, dtype=torch.int32, device=dev))
-            for _ in range(2)]
-    _DUAL(mask_a.data_ptr(), mask_b.data_ptr(), n, block, nb,
-          outs[0][0].data_ptr(), outs[0][1].data_ptr(),
-          outs[1][0].data_ptr(), outs[1][1].data_ptr(), build.stream(dev))
-    dual_compact_tiles.launches += 1
+    args, outs = _lookback_outputs(dev, 2, n, cap)
+    _DUAL_MASK(mask_a.data_ptr(), mask_b.data_ptr(), n, *args,
+               build.stream(dev))
+    dual_compact.launches += 1
     return outs
 
 
-dual_compact_tiles.launches = 0
+dual_compact.launches = 0

@@ -165,11 +165,16 @@ def test_cuda_masked_interval_compact_edges():
 
 @pytest.mark.cuda
 def test_cuda_kernel_api_matches_plain():
-    """K7-K11 (dual_compact_tiles, interval_tiles, interval_filter,
-    msc_select, closure_expand) equal their plain versions, bit for bit, at
-    n = 0, ragged last tiles, all and none matching, K = 1 and K = 33 (and
-    a group wider than the staged part), C = 1 and a table past the staged
-    8,192 ids, query ids equal to INVALID and -1 (needs a card)."""
+    """K7-K11 (dual_compact, interval_tiles, interval_filter, msc_select,
+    closure_expand) equal their plain versions, bit for bit: K7 at n = 0,
+    n < 16, ragged tiles and 2**24 + 3 rows, all and none matching, caps 0,
+    under and over each total, masks at different offsets from 16 bytes
+    (``a[1:]`` with ``b[3:]``, ``a[5:]`` with a fresh ``b``); K8 and K9 at
+    n = 0 and ragged last tiles; K10 at every template boundary (K = 1, 6,
+    8, 9, 16, 17, 32, 33), K = 300 and 7,000 (a group wider than the staged
+    part), G = 0 and views off 16-byte alignment; K11 at C = 1 and a table
+    past the staged 8,192 ids, query ids equal to INVALID and -1 (needs a
+    card)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -188,21 +193,34 @@ def test_cuda_kernel_api_matches_plain():
                  [t_if.interval_filter_plain(p, o, prm)])
             same(t_sc.interval_tiles(p, o, prm, block),
                  t_sc.interval_tiles_plain(p, o, prm, block))
+
+    def dual(a, b):
+        totals = [int(t[2]) for t in t_sc.dual_compact_plain(a, b, 0)]
+        for cap in {0, max(totals) + 8, max(min(totals) // 3, 1)}:
+            same([t for st in t_sc.dual_compact(a, b, cap) for t in st],
+                 [t for st in t_sc.dual_compact_plain(a, b, cap) for t in st])
+
+    big = (torch.rand((1 << 24) + 8, generator=g) < 0.5).to(dev)
+    for n in (0, 1, 7, 15, 3 * 512 + 17, 70_000):
         for da, db in ((0.0, 1.0), (0.3, 0.7), (1.0, 0.0)):
-            ma = (torch.rand(n, generator=g) < da).to(dev)
-            mb = (torch.rand(n, generator=g) < db).to(dev)
-            got = t_sc.dual_compact_tiles(ma, mb, block)
-            want = t_sc.dual_compact_tiles_plain(ma, mb, block)
-            same([t for st in got for t in st], [t for st in want for t in st])
+            dual((torch.rand(n, generator=g) < da).to(dev),
+                 (torch.rand(n, generator=g) < db).to(dev))
+        dual(big[1:n + 1], big[3:n + 3])
+        dual(big[5:n + 5], (torch.rand(n, generator=g) < 0.3).to(dev))
+    dual(big[: (1 << 24) + 3], big[3: (1 << 24) + 6])
 
     for G, K in ((0, 4), (1, 1), (37, 16), (130, 8), (64, 33), (3, 300),
-                 (2, 7000)):
-        conc = torch.randint(-1, 500, (G, K), generator=g, dtype=torch.int32)
-        bounds = conc + torch.randint(1, 64, (G, K), generator=g,
+                 (2, 7000), (1000, 1), (300, 6), (257, 8), (129, 9), (65, 17),
+                 (70, 32), (0, 6), (0, 17)):
+        conc = torch.randint(-1, 500, (G + 1, K), generator=g, dtype=torch.int32)
+        bounds = conc + torch.randint(1, 64, (G + 1, K), generator=g,
                                       dtype=torch.int32)
         conc, bounds = conc.to(dev), bounds.to(dev)
-        same([t_msc.msc_select(conc, bounds)],
-             [t_msc.msc_select_plain(conc, bounds)])
+        # a fresh tensor and a view one group in (off 16-byte alignment
+        # unless 4K is a multiple of 16)
+        for c, b in ((conc[:G].clone(), bounds[:G].clone()),
+                     (conc[1:], bounds[1:])):
+            same([t_msc.msc_select(c, b)], [t_msc.msc_select_plain(c, b)])
 
     for C, D, n in ((1, 4, 7), (5, 3, 0), (44, 5, 100_000), (9000, 6, 5000)):
         ids = torch.randperm(1 << 20, generator=g)[:C].sort().values

@@ -1,6 +1,6 @@
 """Port parity, the kernel API's last five kernels: ``interval_filter``
 (K9), ``msc_select`` (K10), ``closure_expand`` (K11), ``interval_compact``
-(K8) and ``dual_compact_indices`` (K7) in ``kernels/ops.py``, their tile
+(K8) and ``dual_compact_indices`` (K7) in ``kernels/ops.py``, their
 wrappers and ``ref`` oracles, and ``core/query.py::_dual_masked_compact_both``
 against the JAX package.
 
@@ -149,8 +149,8 @@ def test_dual_compact_tiles_match_reference_oracle(block, da, db):
     rng = np.random.default_rng(block + int(10 * da) + int(100 * db))
     n = 2 * block + block // 3  # a ragged last tile
     ma, mb = rng.random(n) < da, rng.random(n) < db
-    got = t_sc.dual_compact_tiles(torch.as_tensor(ma), torch.as_tensor(mb),
-                                  block)
+    got = t_sc.dual_compact_tiles_plain(torch.as_tensor(ma),
+                                        torch.as_tensor(mb), block)
     want = j_ref.ref_dual_compact(jnp.asarray(_padded(ma, block, False)),
                                   jnp.asarray(_padded(mb, block, False)), block)
     assert len(got) == 2
@@ -175,8 +175,8 @@ def test_dual_compact_indices_matches_reference(cap):
     for g, w in zip(got, want):
         _eq(g, w)
     empty = np.zeros(0, bool)  # n = 0: one all-padding tile per stream
-    got = t_sc.dual_compact_tiles(torch.as_tensor(empty),
-                                  torch.as_tensor(empty), 512)
+    got = t_sc.dual_compact_tiles_plain(torch.as_tensor(empty),
+                                        torch.as_tensor(empty), 512)
     want = j_ref.ref_dual_compact(*[jnp.asarray(_padded(empty, 512, False))] * 2,
                                   512)
     for g, w in zip([t for s in got for t in s], want):
@@ -184,6 +184,39 @@ def test_dual_compact_indices_matches_reference(cap):
     take_a, ok_a, tot_a, take_b, ok_b, tot_b = t_ops.dual_compact_indices(
         torch.as_tensor(empty), torch.as_tensor(empty), cap)
     assert int(tot_a) == int(tot_b) == 0 and not (ok_a.any() or ok_b.any())
+
+
+@pytest.mark.parametrize("case,cap", [
+    ("fresh", 0), ("fresh", 16), ("fresh", 1 << 12), ("views", 16),
+    ("views", 1 << 12), ("empty", 16)])
+def test_dual_compact_matches_reference(case, cap):
+    """K7's single-pass wrapper ``stream_compact.dual_compact`` (its plain
+    version here) and ``ops.dual_compact_indices`` equal the reference's
+    ``ops.dual_compact_indices`` (its Pallas kernel in interpret mode): cap
+    0, a total over cap (16), a cap over it (4,096), n = 0, and views at
+    different offsets (``m[1:]`` beside ``m[3:]``, which the kernel reads
+    at different alignments).  The 3,000-row cases at caps 16 and 4,096
+    reuse the reference's compiles of the test above."""
+    rng = np.random.default_rng(3)
+    n = 0 if case == "empty" else 3000
+    base_a, base_b = rng.random(n + 3) < 0.15, rng.random(n + 3) < 0.6
+    if case == "views":
+        ma, mb = torch.as_tensor(base_a)[1:n + 1], torch.as_tensor(base_b)[3:]
+    else:
+        ma, mb = torch.as_tensor(base_a[:n]), torch.as_tensor(base_b[:n])
+    want = j_ops.dual_compact_indices(jnp.asarray(ma.numpy()),
+                                      jnp.asarray(mb.numpy()), cap)
+    streams = t_sc.dual_compact(ma, mb, cap)
+    assert len(streams) == 2
+    t_ops.reset_pass_counters()
+    got = t_ops.dual_compact_indices(ma, mb, cap)
+    assert t_ops.pass_counters["dual_compact"] == 1
+    assert [g.dtype for g in got] == [torch.int32, torch.bool, torch.int32] * 2
+    for g, s, w in zip(got, [t for st in streams for t in st], want):
+        _eq(g, w)
+        _eq(s, w)
+    if cap == 16 and n:
+        assert int(got[2]) > cap and int(got[5]) > cap
 
 
 def test_dual_masked_compact_both_matches_reference():

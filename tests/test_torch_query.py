@@ -16,10 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.engine import KnowledgeBase as JKnowledgeBase
+from repro.core.query import Pattern as JPattern
 from repro.core.query import QueryEngine as JQueryEngine
+from repro.rdf.generator import generate_random_abox as j_random_abox
+from repro.rdf.vocab import lubm_ontology as j_lubm_ontology
 from repro_torch.core.engine import PAPER_QUERIES, KnowledgeBase
+from repro_torch.core.query import Pattern
 from repro_torch.core.query import QueryEngine as TQueryEngine
-from repro_torch.rdf.generator import generate_lubm
+from repro_torch.rdf.generator import generate_lubm, generate_random_abox
 from repro_torch.rdf.vocab import lubm_ontology
 
 torch.set_num_threads(2)
@@ -151,3 +156,29 @@ def test_facade_answers_match(kbs, reference_runs, which, request):
             assert got == {tuple(r) for r in rows_j[q].tolist()}, q
     tkb.prewarm(modes=(mode,))
     assert tkb.prewarm(modes=(mode,)) == 0  # every plan is cached now
+
+
+@pytest.fixture(scope="module")
+def random_kbs():
+    """Both packages' KnowledgeBase of one small random ABox."""
+    kw = dict(n_instances=2000, n_type_triples=1000, n_prop_triples=4000,
+              seed=1)
+    return (JKnowledgeBase.build(j_random_abox(j_lubm_ontology(), **kw)),
+            KnowledgeBase.build(generate_random_abox(lubm_ontology(), **kw),
+                                device="cpu"))
+
+
+@pytest.mark.parametrize("mode", ["litemat", "full", "rewrite"])
+def test_variable_free_pattern_raises_as_reference(random_kbs, mode):
+    """A pattern of three constants (the store's first row) selects no
+    variable, so ``distinct`` sorts by no key: both packages raise the same
+    ``TypeError`` with the same message."""
+    jkb, tkb = random_kbs
+    s, p, o = (int(v) for v in np.asarray(jkb.kb.spo[0]))
+    assert [s, p, o] == tkb.kb.spo[0].tolist()
+    with pytest.raises(TypeError) as want:
+        jkb.query([JPattern(s, p, o)], mode=mode)
+    with pytest.raises(TypeError) as got:
+        tkb.query([Pattern(s, p, o)], mode=mode)
+    assert str(got.value) == str(want.value) == (
+        "need sequence of keys with len > 0 in lexsort")
