@@ -328,17 +328,20 @@ def uncounted():
         passes[k] = saved[f"pass/{k}"]
 
 
-def _one_launch(name: str, fn, counter: str, kind: str) -> dict:
+def _one_launch(name: str, fn, counter: str, kind,
+                kernel: str = "compact_lookback") -> dict:
     """Require that the ``kernels.ops`` call ``fn`` launches ``counter``'s
-    kernel once (one ``kind`` pass) and that the profiler sees that one
-    kernel and its memsets on the device, nothing after it; returns the
-    call's device time by name."""
+    kernel once (one ``kind`` pass, unless ``kind`` is None: an entry point
+    without a pass counter) and that the profiler sees that one kernel,
+    whose name holds ``kernel``, and its memsets on the device, nothing
+    after it; returns the call's device time by name."""
     got = launches_of(fn)
-    require(got == {counter: 1, f"pass/{kind}": 1},
+    want = {counter: 1} if kind is None else {counter: 1, f"pass/{kind}": 1}
+    require(got == want,
             f"{name}: one ops call launched {got}, not one {counter}")
     split = device_split(fn)
     kernels = [k for k in split if not k.startswith("Memset")]
-    require(len(kernels) == 1 and "compact_lookback" in kernels[0],
+    require(len(kernels) == 1 and kernel in kernels[0],
             f"{name}: one ops call ran {sorted(split)} on the device")
     return split
 
@@ -977,6 +980,7 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     from repro_torch.kernels import ops
     from repro_torch.kernels import pair_search as ps
     from repro_torch.kernels import stream_compact as sc
+    from repro_torch.testing.kernel_edges import closure_expand_edges
     from repro_torch.utils.pair64 import pair_key
 
     dev = kb100.device
@@ -1364,16 +1368,18 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         lambda: ce.closure_expand(cq, cids, canc),
         lambda: ce.closure_expand_plain(cq, cids, canc), None,
         4 * nq + 4 * D * nq + 4 * cids.numel() + 4 * canc.numel()))
+    rows[-1]["ops_device_split"] = _one_launch(
+        "closure_expand", lambda: ops.closure_expand(cq, cids, canc),
+        "closure_expand", None, kernel="closure_expand")
     odd = cq[:1000].clone()
     odd[::3], odd[1::3] = -1, 2**31 - 1  # never concept ids: rows of -1
-    big_ids = torch.arange(0, 3 * 9000, 3, dtype=torch.int32, device=dev)
-    big_anc = torch.randint(-1, 1000, (9000, D), generator=gen, device=dev,
-                            dtype=torch.int32)
-    for q_e, ids_e, anc_e in ((cq[:0], cids, canc), (odd, cids, canc),
-                              (cq[:777], cids[:1], canc[:1]),
-                              (big_ids[:4096] + torch.randint(
-                                  0, 2, (4096,), generator=gen, device=dev,
-                                  dtype=torch.int32), big_ids, big_anc)):
+    for q_e in (cq[:0], odd, cq[1:], cq[3:100_003]):
+        _exact("closure_expand edge", [ce.closure_expand(q_e, cids, canc)],
+               [ce.closure_expand_plain(q_e, cids, canc)])
+        edge_checks += 1
+    # K11 edges: every template boundary of D and the generic kernel past
+    # it, C past the staged ids, n % 4 tails, views off 16 bytes, extreme ids
+    for q_e, ids_e, anc_e in closure_expand_edges(dev):
         _exact("closure_expand edge", [ce.closure_expand(q_e, ids_e, anc_e)],
                [ce.closure_expand_plain(q_e, ids_e, anc_e)])
         edge_checks += 1

@@ -3,7 +3,9 @@
 ``ops`` entry point) and the kernel-API kernels K10 and K11 at LUBM-100's
 shapes on one GPU, beside two yardsticks of the card's streaming rate over
 the same store: a copy of the lite store and the interval filter (K9),
-which read the same rows and keep nothing.
+which read the same rows and keep nothing.  K11 is also timed on a
+synthetic table past its staging limit (``k11_large_c``: 213,000 sorted
+ids, D = 8, LUBM-100's query count, half of the queries hits).
 
     python3 scripts/bench_compaction.py [SRC]
 
@@ -147,8 +149,27 @@ def main() -> int:
     timed("k10", lambda: msc.msc_select(conc_g, bounds_g),
           shape=list(conc_g.shape))
     ids, anc = kb.dtb.concept_sorted_ids, kb.dtb.concept_ancestors
+    cs._exact("k11", [ce.closure_expand(c_conc, ids, anc)],
+              [ce.closure_expand_plain(c_conc, ids, anc)])
     timed("k11", lambda: ce.closure_expand(c_conc, ids, anc),
-          shape=[int(c_conc.shape[0]), int(anc.shape[1])])
+          shape=[int(c_conc.shape[0]), int(ids.shape[0]), int(anc.shape[1])])
+    # K11, synthetic: Wikidata's 213,000 concept ids (the scale the
+    # reference's kernel names), D = 8, LUBM-100's query count, half hits
+    gen = torch.Generator(device=dev).manual_seed(0)
+    nq, big_c = c_conc.shape[0], 213_000
+    big_ids = torch.randint(1, 2 * (1 << 24) // big_c + 1, (big_c,),
+                            generator=gen, device=dev).cumsum(0).to(torch.int32)
+    big_anc = torch.randint(-1, 1 << 20, (big_c, 8), generator=gen,
+                            device=dev, dtype=torch.int32)
+    big_q = torch.randint(0, int(big_ids[-1]) + 1, (nq,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    big_q[::2] = big_ids[torch.randint(0, big_c, ((nq + 1) // 2,),
+                                       generator=gen, device=dev)]
+    cs._exact("k11_large_c", [ce.closure_expand(big_q, big_ids, big_anc)],
+              [ce.closure_expand_plain(big_q, big_ids, big_anc)])
+    timed("k11_large_c", lambda: ce.closure_expand(big_q, big_ids, big_anc),
+          shape=[int(nq), big_c, 8], synthetic=True,
+          hits=int(torch.isin(big_q, big_ids).sum()))
     for name, v in out.items():
         print(name, json.dumps(v), flush=True)
     return 0

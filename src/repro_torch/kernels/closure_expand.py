@@ -4,7 +4,9 @@ The port of ``closure_expand_pallas``: for each concept id of ``conc``, a
 lower-bound search in ``sorted_ids`` (clipped to the last slot) and, where
 that slot holds the id, its row of ``anc_table[C, D]``; a miss gives a row
 of -1 — the contract of ``ref_closure_expand``.  The kernel
-(``csrc/closure_expand.cu``) fuses the search and the row copy.
+(``csrc/closure_expand.cu``) fuses the search and the row copy: a template
+kernel for D <= 32 (exact D up to 8, buckets of 16 and 32) that takes four
+queries a thread, and a generic one past that.
 
 On a CPU tensor ``closure_expand`` runs the plain version; on a CUDA tensor
 it launches the kernel (counted in ``closure_expand.launches``) or raises.
@@ -46,8 +48,9 @@ def closure_expand(conc: torch.Tensor, sorted_ids: torch.Tensor,
     if c == 0:
         raise ValueError("closure_expand needs a non-empty sorted_ids")
     n, d = conc.shape[0], anc_table.shape[1]
-    if d >= 1 << 23:  # the kernel's in-tile offsets (256 rows x D) are int32
-        raise ValueError(f"closure_expand takes D < 2**23 ancestors, got {d}")
+    if d >= 1 << 23 or c * d >= 1 << 31:  # the kernels' offsets are int32
+        raise ValueError(f"closure_expand takes D < 2**23 ancestors and "
+                         f"C * D < 2**31, got C = {c}, D = {d}")
     conc, sorted_ids = conc.contiguous(), sorted_ids.contiguous()
     anc_table = anc_table.contiguous()
     out = torch.empty((n, d), dtype=torch.int32, device=dev)

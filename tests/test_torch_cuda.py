@@ -17,6 +17,7 @@ from repro_torch.kernels import merge_sorted as t_ms
 from repro_torch.kernels import msc_select as t_msc
 from repro_torch.kernels import pair_search as t_ps
 from repro_torch.kernels import stream_compact as t_sc
+from repro_torch.testing.kernel_edges import closure_expand_edges
 
 
 @pytest.mark.cuda
@@ -172,9 +173,13 @@ def test_cuda_kernel_api_matches_plain():
     (``a[1:]`` with ``b[3:]``, ``a[5:]`` with a fresh ``b``); K8 and K9 at
     n = 0 and ragged last tiles; K10 at every template boundary (K = 1, 6,
     8, 9, 16, 17, 32, 33), K = 300 and 7,000 (a group wider than the staged
-    part), G = 0 and views off 16-byte alignment; K11 at C = 1 and a table
-    past the staged 8,192 ids, query ids equal to INVALID and -1 (needs a
-    card)."""
+    part), G = 0 and views off 16-byte alignment; K11 at
+    ``kernel_edges.closure_expand_edges``: n = 0, 1, 3, 4, 5, 257 and
+    100,003, views 0-3 ids off 16 bytes, C = 1, 2, 44, 8,192, 8,193 (past
+    the staged ids) and 213,000, D = 1, 5, 8, 9, 16, 17, 32 and 33 (each
+    template boundary and the generic kernel), queries -1, INT32_MIN,
+    INT32_MAX and at and beyond each end of the table, ancestor rows of -1
+    (needs a card)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -231,6 +236,8 @@ def test_cuda_kernel_api_matches_plain():
         if n >= 2:
             q[-2:] = torch.tensor([-1, inv], dtype=torch.int32)
         args = (q.to(dev), ids.to(dev), anc.to(dev))
+        same([t_ce.closure_expand(*args)], [t_ce.closure_expand_plain(*args)])
+    for args in closure_expand_edges(dev):
         same([t_ce.closure_expand(*args)], [t_ce.closure_expand_plain(*args)])
 
 

@@ -29,6 +29,9 @@ from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import stream_compact as t_sc
 from repro_torch.kernels.stream_compact import member_masks
 from repro_torch.rdf.generator import generate_random_abox
+from repro_torch.testing.kernel_edges import (
+    CLOSURE_C, CLOSURE_D, closure_expand_edges,
+)
 
 from test_torch_delta import _disjoint_delta, _spec
 from test_torch_kernels import _eq, _padded
@@ -91,7 +94,10 @@ def test_msc_select_property(g, k, seed):
 
 
 @pytest.mark.parametrize("C,D,n", [(5, 3, 0), (1, 4, 7), (5, 3, 10),
-                                   (64, 8, 2048), (513, 5, 100)])
+                                   (64, 8, 2048), (513, 5, 100),
+                                   (44, 1, 257), (44, 9, 101), (44, 16, 4),
+                                   (44, 17, 5), (44, 32, 3), (44, 33, 257),
+                                   (8193, 8, 1000)])
 def test_closure_expand_matches_reference(C, D, n):
     rng = np.random.default_rng(C * 10 + n)
     sorted_ids = np.sort(rng.choice(1 << 20, C, replace=False)).astype(np.int32)
@@ -109,6 +115,22 @@ def test_closure_expand_matches_reference(C, D, n):
     _eq(t_ref.ref_closure_expand(*args_t), want)
     if (C, D, n) == (5, 3, 10):  # the reference's own wrapper, once
         _eq(got, j_ops.closure_expand(*args_j))
+
+
+def test_closure_expand_edges_match_reference():
+    """The card's K11 edge inputs (``kernel_edges.closure_expand_edges``) at
+    n = 257, through the port's entry point on the CPU, equal the
+    reference's ``ref_closure_expand``: every C and D the card test covers,
+    views 0-3 ids in."""
+    seen = set()
+    for q, ids, anc in closure_expand_edges("cpu"):
+        if q.shape[0] != 257:
+            continue
+        seen.add((ids.shape[0], anc.shape[1], q.storage_offset()))
+        _eq(t_ops.closure_expand(q, ids, anc),
+            j_ref.ref_closure_expand(*(jnp.asarray(t.numpy())
+                                       for t in (q, ids, anc))))
+    assert len(seen) == len(CLOSURE_C) * len(CLOSURE_D) * 4
 
 
 @pytest.mark.parametrize("n", [0, 5, 513, 4096])
