@@ -43,18 +43,35 @@ line:
                 ``msc_select`` (K10) on the distinct (instance, concept)
                 candidates grouped by instance, held against the sort-based
                 MSC of materialize.py;
-  8. kernels  — each kernel against its plain version on the card at the
+  8. lubm100_serving — serving at LUBM-100 on the live store: the
+                QueryServer loop of launch/serve.py (1,024 requests in
+                batches of 128, class members and class-property joins;
+                every distinct count equal to the engine's answer count;
+                q/s, p50 and p99 per request); ``run_batch`` of three
+                parameterized same-signature families in litemat (indexed
+                and scan) and rewrite, every member's rows equal to its solo
+                run, groups of two or more formed, the batch's wall time and
+                launches beside the same members run solo; the runtime
+                (launch/serve.py ``--concurrent``: 2 workers, the paper
+                queries and the families, a 64-row insert stream), every
+                outcome ok and no batch fallen back to solo runs; a pinned
+                version unchanged across an insert and a compaction, a
+                fresh pin equal to the live store;
+  9. kernels  — each kernel against its plain version on the card at the
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
                 call's: event time (back to back, and behind a sleep
                 kernel), profiler device time and host time per call, and
                 for K1–K4 and K7 the ``kernels.ops``-level call (``ops_ms``;
                 K1's, K2's, K4's and K7's must be one launch and, in the
-                profiler, one kernel beside its memset); then the
-                ``{"kernels": [...]}`` line with the launch
+                profiler, one kernel beside its memset); the batched K1, K2
+                and K4 (one launch for a group's members) at the serving
+                phase's shapes beside the same members as solo calls, and
+                on the batched edges of ``testing/kernel_edges.py``; then
+                the ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
-                before each of phases 3–7 and read just after it (a
-                ``window`` line each), and the line sums the five windows.
+                before each of phases 3–8 and read just after it (a
+                ``window`` line each), and the line sums the six windows.
                 The scratch builds the checks compare against run with the
                 counters set back, so only the main path's launches count.
 
@@ -274,6 +291,10 @@ def _counters():
         "pair_search": pair_search.pair_search,
         "pair_range": pair_search.pair_range,
         "member_compact": stream_compact.member_compact,
+        "compact_mask_batched": stream_compact.compact_mask_batched,
+        "masked_interval_compact_batched":
+            stream_compact.masked_interval_compact_batched,
+        "member_compact_batched": stream_compact.member_compact_batched,
         "merge_path_resident": merge_sorted.merge_path_resident,
         "merge_path": merge_sorted.merge_path,
         "dual_compact": stream_compact.dual_compact,
@@ -831,6 +852,168 @@ def phase_lubm100_kernel_api(kb):
     return inputs
 
 
+SERVING_CLASSES_Q4 = ["Chair", "Dean", "FullProfessor", "AssociateProfessor",
+                      "AssistantProfessor", "Lecturer"]
+
+
+def serving_families():
+    """The parameterized same-signature request families of the serving
+    phase: ``(?x rdf:type C)`` and ``(?x rdf:type C) (?x memberOf ?y)``
+    over launch/serve.py's classes, and the Q4 shape over professors."""
+    from repro_torch.core.query import Pattern
+    from repro_torch.launch.serve import CLASSES
+
+    return {
+        "type": [[Pattern("?x", "rdf:type", c)] for c in CLASSES],
+        "type_member": [[Pattern("?x", "rdf:type", c),
+                         Pattern("?x", "memberOf", "?y")] for c in CLASSES],
+        "q4": [[Pattern("?x", "rdf:type", c),
+                Pattern("?y", "rdf:type", "Department"),
+                Pattern("?x", "worksFor", "?y")] for c in SERVING_CLASSES_Q4],
+    }
+
+
+SERVING_MODES = (("litemat", True), ("litemat", False), ("rewrite", True))
+
+
+def _batch_size_max(mode: str) -> float:
+    from repro_torch.obs.metrics import REGISTRY
+
+    return REGISTRY.histogram("query/batch_size", mode=mode).summary().get(
+        "max", 0)
+
+
+def phase_lubm100_serving(kb, raw):
+    """Serving at LUBM-100: the QueryServer loop, ``run_batch`` on
+    parameterized same-signature families in litemat (indexed and scan)
+    and rewrite, and the snapshot-isolated runtime under an insert stream."""
+    import argparse
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.core.query import Pattern
+    from repro_torch.core.snapshot import SnapshotRegistry
+    from repro_torch.kernels import stream_compact as sc
+    from repro_torch.launch.serve import run_concurrent, serve_batches
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    # -- 1. the QueryServer loop: launch/serve.py's traffic; every distinct
+    # count equals the solo engine's answer count --
+    srv = serve_batches(kb, requests=1024, batch=128, seed=0)
+    expect = {}
+    for names, props, counts in srv["log"]:
+        for i, c in enumerate(names):
+            key = (c, None if props is None else props[i])
+            if key not in expect:
+                pats = [Pattern("?x", "rdf:type", c)]
+                if key[1] is not None:
+                    pats.append(Pattern("?x", key[1], "?y"))
+                expect[key] = int(kb.query(pats, select=("?x",))[0].shape[0])
+            require(int(counts[i]) == expect[key],
+                    f"QueryServer {key}: {int(counts[i])} distinct, the "
+                    f"engine answers {expect[key]}")
+    out["query_server"] = {k: srv[k] for k in ("served", "wall_s", "qps",
+                                                "p50_ms", "p99_ms")}
+    out["query_server"]["checked_keys"] = len(expect)
+
+    # -- 2. run_batch on same-signature families: batched == solo, groups
+    # of two or more in every mode, and the batch's wall and launches
+    # beside the same members run solo --
+    fams = serving_families()
+    batch = {}
+    for mode, use_index in SERVING_MODES:
+        tag = f"{mode}/{'index' if use_index else 'scan'}"
+        reg = SnapshotRegistry(kb, modes=(mode,), use_index=use_index)
+        max0 = _batch_size_max(mode)
+        with reg.pin() as pin:
+            eng = pin.snapshot.engine(mode)
+            for fam, qs in fams.items():
+                reqs = [(q, None) for q in qs]
+                got = pin.query_batch(reqs, mode=mode)
+                for q, (rows, _) in zip(qs, got):
+                    want, _ = pin.query(q, mode=mode)
+                    require(np.array_equal(rows, want),
+                            f"run_batch {tag} {fam} {q[0].o}: batched rows "
+                            f"differ from the solo run's")
+                groups = sorted(k[-1] for k in eng._exec_cache
+                                if isinstance(k, tuple) and k[0] == "bexec")
+                torch.cuda.synchronize()
+                solo_launch = launches_of(lambda: [pin.query(q, mode=mode)
+                                                   for q in qs])
+                batch_launch = launches_of(
+                    lambda: pin.query_batch(reqs, mode=mode))
+                batch[f"{tag}/{fam}"] = {
+                    "members": len(qs), "answers": [int(r.shape[0])
+                                                    for r, _ in got],
+                    "batch_ms": _median_ms(
+                        lambda: pin.query_batch(reqs, mode=mode), runs=3),
+                    "solo_ms": _median_ms(
+                        lambda: [pin.query(q, mode=mode) for q in qs], runs=3),
+                    "batch_launches": batch_launch,
+                    "solo_launches": solo_launch}
+            batch[f"{tag}/bexec_groups"] = groups
+        require(_batch_size_max(mode) >= 2 and _batch_size_max(mode) >= max0,
+                f"run_batch {tag}: no group of two or more members formed")
+    out["run_batch"] = batch
+
+    # -- 3. the runtime: 2 workers, the paper queries and the families,
+    # a background 64-row insert stream; every outcome ok, no batch fell
+    # back to solo.  128 requests: an outcome's answers are a Python set
+    # of row tuples (the reference's contract), and the families' large
+    # classes answer a million rows each, ~0.5 s of host time a request
+    # (scripts/serving_diag.py) --
+    queries = list(PAPER_QUERIES.values()) + [q for qs in fams.values()
+                                              for q in qs]
+    args = argparse.Namespace(workers=2, max_queue=136, deadline_s=None,
+                              requests=128, seed=0)
+    b0 = sc.compact_mask_batched.launches
+    conc = run_concurrent(kb, raw, args, queries=queries)
+    rt = conc["runtime"]
+    bad = [o.status for o in conc["outcomes"] if not o.ok]
+    require(not bad, f"runtime outcomes not ok: {sorted(set(bad))}")
+    fallback = {r: rt.metrics.counter_value("serving/batch_fallback",
+                                            reason=r)
+                for r in ("batch_error", "member_fault")}
+    require(sum(fallback.values()) == 0,
+            f"the runtime fell back to solo runs: {fallback}")
+    require(sc.compact_mask_batched.launches > b0,
+            "the runtime's batches launched no batched kernel")
+    out["runtime"] = {"stats": conc["stats"], "latency": conc["latency"],
+                      "batch_fallback": fallback,
+                      "batched_k1_launches":
+                          sc.compact_mask_batched.launches - b0,
+                      "versions": len({o.version for o in conc["outcomes"]})}
+
+    # -- 4. isolation: a pinned version answers as before an insert and a
+    # compaction; a fresh pin answers as the live store --
+    reg = rt.registry
+    paper = list(PAPER_QUERIES.values())
+    s, p, o = np.asarray(raw.s), np.asarray(raw.p), np.asarray(raw.o)
+    with reg.pin() as pinned:
+        before = [pinned.query(q)[0] for q in paper]
+        rt.insert((s[:64], p[:64], o[:64]), auto_compact=False)
+        rt.compact()
+        for q, rows in zip(paper, before):
+            require(np.array_equal(pinned.query(q)[0], rows),
+                    "a pinned version's answers moved across an insert "
+                    "and a compaction")
+        with reg.pin() as fresh:
+            require(fresh.version == kb.version != pinned.version,
+                    "a fresh pin is not at the live version")
+            for q in paper:
+                require(np.array_equal(fresh.query(q)[0], kb.query(q)[0]),
+                        "a fresh pin's answers differ from the live KB's")
+    out["isolation"] = {"pinned_version": pinned.version,
+                        "live_version": kb.version}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_gib"] = peak_gib()
+    emit({"phase": "lubm100_serving", **out})
+
+
 def _profile(fn, runs: int = 5) -> dict:
     """Device busy share and top kernels over ``runs`` calls (torch.profiler).
 
@@ -965,6 +1148,55 @@ def _id_set(ids, cap, dev):
     out = torch.full((cap,), 2**31 - 1, dtype=torch.int32, device=dev)
     ids = torch.unique(ids.to(torch.int32))
     out[: ids.shape[0]] = ids
+    return out
+
+
+def _largest_group(eng, qs):
+    """The plans of the largest same-signature group of ``qs`` in ``eng``."""
+    groups = {}
+    for q in qs:
+        pl = eng._plan(q, None)
+        groups.setdefault((pl[0], pl[4]), []).append(pl)
+    return max(groups.values(), key=len)
+
+
+def _batched_args(kb):
+    """The batched K1, K2 and K4 calls at the serving phase's shapes: the
+    ``(?x rdf:type C)`` family's DISTINCT keep masks (litemat, indexed: each
+    member's answers set), its fused scan over the lite store (litemat
+    scan: each member's bounds) and its largest rewrite group's member sets
+    over the raw store, each at the caps ``_batch_caps`` gives the group."""
+    import torch
+    from repro_torch.core.query import QueryEngine, _stack_dyn
+
+    qs = serving_families()["type"]
+    dev = kb.device
+    out = {}
+    eng = QueryEngine(kb=kb.kb, spo=kb.lite_spo, mode="litemat", dtb=kb.dtb,
+                      view=kb.view("litemat"))
+    plans = _largest_group(eng, qs)
+    caps, join_cap = eng._batch_caps(plans)
+    counts = torch.tensor([eng._run_planned(pl)[0].shape[0] for pl in plans],
+                          device=dev)
+    out["k1"] = (torch.arange(caps[0], device=dev)[None, :] < counts[:, None],
+                 join_cap)
+    for mode, key in (("litemat", "k2"), ("rewrite", "k4")):
+        eng = QueryEngine(kb=kb.kb, spo=kb._base_store(mode), mode=mode,
+                          dtb=kb.dtb, view=kb.view(mode),
+                          use_index=mode == "rewrite")
+        plans = _largest_group(eng, qs)
+        sig = plans[0][0][0]
+        caps, _ = eng._batch_caps(plans)
+        dyn = _stack_dyn(sig, [pl[1][0] for pl in plans], dev)
+        base = eng.view.dev("scan")
+        require(base.delta is None, f"{mode}: the scan view holds a delta")
+        if key == "k2":
+            require(sig.fused, "the type family's scan is not fused")
+            out[key] = (base.base[:, 1], base.base[:, 2], base.base_alive,
+                        dyn["params"], caps[0])
+        else:
+            out[key] = (base.base, base.base_alive, dyn["tid"], dyn["o"],
+                        dyn["dom"], dyn["rng"], caps[0], *sig.extra_caps[2:])
     return out
 
 
@@ -1414,7 +1646,112 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
            [msc.msc_select_plain(conc_g[:1001], bounds_g[:1001])])
     edge_checks += 1
 
+    # -- the batched compactions (K1, K2, K4 with a member axis) at the
+    # serving phase's shapes, beside the same members as solo calls --
+    from repro_torch.testing.kernel_edges import (
+        compact_mask_batched_edges, masked_interval_batched_edges,
+        member_batched_edges)
+
+    bk = _batched_args(kb100)
+    keep_b, cap_b = bk["k1"]
+    nb1, n1 = keep_b.shape
+    err = _exact("compact_mask_batched", sc.compact_mask_batched(keep_b, cap_b),
+                 sc.compact_mask_batched_plain(keep_b, cap_b))
+    rows.append(_row(
+        "compact_mask_batched", src + "stream_compact.cu",
+        ref + "stream_compact.py:208",
+        launches["compact_mask_batched"], err,
+        lambda: sc.compact_mask_batched(keep_b, cap_b),
+        lambda: sc.compact_mask_batched_plain(keep_b, cap_b),
+        lambda: torch.nonzero(keep_b), nb1 * n1 + nb1 * (5 * cap_b + 4),
+        ops=lambda: ops.compact_indices_batched(keep_b, cap_b)))
+    rows[-1].update(under_vmap=True, members=nb1, rows_per_member=n1,
+                    cap=cap_b,
+                    solo_calls_event_ms=event_ms(
+                        lambda: [sc.compact_mask(m, cap_b) for m in keep_b]))
+    rows[-1]["ops_device_split"] = _one_launch(
+        "compact_indices_batched",
+        lambda: ops.compact_indices_batched(keep_b, cap_b),
+        "compact_mask_batched", "compact")
+
+    p2, o2, a2, prm2, cap2 = bk["k2"]
+    nb2, n2 = prm2.shape[0], p2.shape[0]
+    k2b = (p2, o2, a2, prm2, cap2)
+    err = _exact("masked_interval_compact_batched",
+                 sc.masked_interval_compact_batched(*k2b),
+                 sc.masked_interval_compact_batched_plain(*k2b))
+    prm_h = prm2.tolist()
+    rows.append(_row(
+        "masked_interval_compact_batched", src + "stream_compact.cu",
+        ref + "stream_compact.py:250",
+        launches["masked_interval_compact_batched"], err,
+        lambda: sc.masked_interval_compact_batched(*k2b),
+        lambda: sc.masked_interval_compact_batched_plain(*k2b), None,
+        13 * n2 + 16 * nb2 + nb2 * (5 * cap2 + 4),
+        ops=lambda: ops.masked_interval_compact_batched(*k2b)))
+    rows[-1].update(
+        under_vmap=True, members=nb2, rows=n2, cap=cap2,
+        store_reads_bound_ms=nb2 * 13 * n2 / HBM_BYTES_PER_S * 1e3,
+        solo_calls_event_ms=event_ms(
+            lambda: [sc.masked_interval_compact(p2, o2, a2, b, cap2)
+                     for b in prm_h]))
+    rows[-1]["ops_device_split"] = _one_launch(
+        "masked_interval_compact_batched",
+        lambda: ops.masked_interval_compact_batched(*k2b),
+        "masked_interval_compact_batched", "compact")
+
+    spo4, a4, tid4, mem4, dom4, rng4, cap4, hd4, hr4 = bk["k4"]
+    nb4, n4 = mem4.shape[0], spo4.shape[0]
+    k4b = (spo4[:, 0], spo4[:, 1], spo4[:, 2], a4, tid4, mem4, dom4, rng4,
+           hd4, hr4, cap4)
+    err = _exact("member_compact_batched",
+                 flat(sc.member_compact_batched(*k4b)),
+                 flat(sc.member_compact_batched_plain(*k4b)))
+    streams4 = 2 if hr4 else 1
+    set_bytes4 = 4 * (mem4.numel() + (dom4.numel() if hd4 else 0)
+                      + (rng4.numel() if hr4 else 0))
+    k4_ops = (lambda: ops.rewrite_member_compact_batched(
+        spo4, a4, tid4, mem4, dom4, rng4, cap4, hd4, hr4))
+    rows.append(_row(
+        "member_compact_batched", src + "stream_compact.cu",
+        ref + "stream_compact.py:284",
+        launches["member_compact_batched"], err,
+        lambda: sc.member_compact_batched(*k4b),
+        lambda: sc.member_compact_batched_plain(*k4b), None,
+        13 * n4 + set_bytes4 + streams4 * nb4 * (5 * cap4 + 4), ops=k4_ops))
+    rows[-1].update(
+        under_vmap=True, members=nb4, rows=n4, cap=cap4, streams=streams4,
+        store_reads_bound_ms=nb4 * 13 * n4 / HBM_BYTES_PER_S * 1e3,
+        solo_calls_event_ms=event_ms(
+            lambda: [sc.member_compact(*k4b[:5], mem4[b], dom4[b], rng4[b],
+                                       hd4, hr4, cap4) for b in range(nb4)]))
+    rows[-1]["ops_device_split"] = _one_launch(
+        "rewrite_member_compact_batched", k4_ops, "member_compact_batched",
+        "member_compact")
+    del bk, keep_b
+    # batched edges (kernel_edges): B = 1, 2, 3, 16; n = 0, 1, 8,191, 8,192,
+    # 8,193, 2**21 + 3; cap = 0, 1, n, n + 5; members all false, all true,
+    # differing; masks off 16 bytes; K2 bounds inverted, empty, full-range,
+    # alive partly false; K4 sets past the staged 2,048
+    batched_edges = 0
+    for m_e, c_e in compact_mask_batched_edges(dev):
+        _exact("compact_mask_batched edge", sc.compact_mask_batched(m_e, c_e),
+               sc.compact_mask_batched_plain(m_e, c_e))
+        batched_edges += 1
+    for a_e in masked_interval_batched_edges(dev):
+        _exact("masked_interval_compact_batched edge",
+               sc.masked_interval_compact_batched(*a_e),
+               sc.masked_interval_compact_batched_plain(*a_e))
+        batched_edges += 1
+    for a_e in member_batched_edges(dev):
+        _exact("member_compact_batched edge",
+               flat(sc.member_compact_batched(*a_e)),
+               flat(sc.member_compact_batched_plain(*a_e)))
+        batched_edges += 1
+    edge_checks += batched_edges
+
     emit({"phase": "kernels", "edge_checks": edge_checks,
+          "batched_edge_checks": batched_edges,
           "shapes": {"compact_mask": cap, "compact_answers": n_ans,
                      "scan_rows": n, "scan_cap": kcap,
                      "pair_search_table": T, "pair_search_queries": Q,
@@ -1455,11 +1792,14 @@ def main() -> int:
     small_cap = drive(launches, phase_lubm100_live, kb100, raw,
                       need=("compact_mask", "member_compact", "pair_range",
                             "merge_path_resident", "merge_path"))
-    del raw
     api = drive(launches, phase_lubm100_kernel_api, kb100,
                 need=("pair_search", "dual_compact", "interval_tiles",
                       "interval_filter", "msc_select", "closure_expand",
                       "pass/dual_compact"))
+    drive(launches, phase_lubm100_serving, kb100, raw,
+          need=("compact_mask_batched", "masked_interval_compact_batched",
+                "member_compact_batched"))
+    del raw
     phase_kernels(kb1, kb100, launches, small_cap, api)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

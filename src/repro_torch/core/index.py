@@ -271,3 +271,45 @@ def merge_sorted(a_rows: np.ndarray, a_key: np.ndarray,
     out_rows[~mask_b] = a_rows
     out_key[~mask_b] = a_key
     return out_rows, out_key
+
+
+@dataclass
+class TypeIndex:
+    """rdf:type triples ordered by (object, subject) — the serving Q1 index.
+
+    A class-membership request for concept interval [lo, hi) is resolved by
+    two host binary searches over the object column; the subjects of the hit
+    run sit in one contiguous device slice (sorted by object, then subject —
+    NOT globally deduplicated: an instance carrying several types inside the
+    interval appears once per type, so DISTINCT still needs a per-request
+    dedup over the *slice*, bounded by the class size rather than the whole
+    type view).  The sort runs on the store's device.
+    """
+
+    subj: torch.Tensor  # int32[T+1] subjects, (o, s) order + INVALID sentinel
+    obj: torch.Tensor  # int32[T+1] objects, (o, s) order + INVALID sentinel
+    _h_obj: np.ndarray = field(repr=False)  # true (unpadded) object column
+
+    @classmethod
+    def build(cls, spo: torch.Tensor, type_id: int) -> "TypeIndex":
+        m = spo[:, 1] == int(type_id)
+        s, o = spo[m, 0], spo[m, 2]
+        perm = torch.sort((o.to(torch.int64) << 32) + s.to(torch.int64),
+                          stable=True).indices
+        s, o = s[perm], o[perm]
+        # one INVALID sentinel keeps device gathers well-formed when the
+        # store has no type triples at all
+        pad = torch.full((1,), np.iinfo(np.int32).max, dtype=torch.int32,
+                         device=spo.device)
+        return cls(subj=torch.cat([s, pad]), obj=torch.cat([o, pad]),
+                   _h_obj=np.ascontiguousarray(o.cpu().numpy()))
+
+    @property
+    def n(self) -> int:
+        return int(self._h_obj.shape[0])
+
+    def range_of(self, lo: int, hi: int):
+        """(start, length) of the object interval [lo, hi)."""
+        r0 = int(np.searchsorted(self._h_obj, lo, side="left"))
+        r1 = int(np.searchsorted(self._h_obj, hi, side="left"))
+        return r0, r1 - r0

@@ -607,6 +607,366 @@ def distinct(rel: Relation, select: tuple, cap: int) -> Relation:
 
 
 # ---------------------------------------------------------------------------
+# Batched execution: B same-signature requests in one plan body
+#
+# What the reference gets from ``jax.vmap(run_device, in_axes=(None, 0))``:
+# every step of the plan body gains a leading member axis B, the stores are
+# shared and the per-request constants are stacked.  Each step computes,
+# for member b, exactly what the solo step computes for that member's
+# constants — per-member sorts run along dim 1, the compactions are the
+# kernels' batched entries (one launch for all members), and the INL probes
+# of all members go through one search of the flattened [B * q] batch (a
+# query's position in a table depends only on the table).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BatchRelation(Relation):
+    """A Relation with a leading member axis: cols int32[B, n_vars, cap],
+    valid bool[B, cap], overflow int32[B]."""
+
+    def col(self, v) -> torch.Tensor:
+        return self.cols[:, self.vars.index(v)]
+
+
+def _stack_term(tsig: TermSig, vals, device):
+    """Per-member term constants -> one stacked tensor: member sets
+    [B, mem_cap], interval bounds int32[B, 2 + 2 * n_spills]."""
+    if tsig.kind == "members":
+        return torch.stack(vals)
+    return torch.tensor(vals, dtype=torch.int32, device=device)
+
+
+def _stack_dyn(sig: PatternSig, dyns, device) -> dict:
+    """One pattern's per-member constants (``dyn`` dicts) stacked along B."""
+    if sig.strategy in ("slice", "inl"):
+        out = ({"starts": torch.stack([d["starts"] for d in dyns]),
+                "lens": torch.stack([d["lens"] for d in dyns])}
+               if sig.strategy == "slice"
+               else {"pid": torch.stack([d["pid"] for d in dyns])})
+        for posi in sig.residual:
+            key = ("s", "p", "o")[posi]
+            tsig = (sig.s_sig, sig.p_sig, sig.o_sig)[posi]
+            out[key] = _stack_term(tsig, [d[key] for d in dyns], device)
+        return out
+    if sig.extra_caps is not None:  # rewrite type pattern: sets per member
+        tids = {d["tid"] for d in dyns}
+        if len(tids) != 1:
+            raise ValueError(f"a batch shares one rdf:type id, got {tids}")
+        return {"tid": tids.pop(),
+                **{k: torch.stack([d[k] for d in dyns])
+                   for k in ("o", "dom", "rng")}}
+    if sig.fused:  # the batched K2 reads each member's bounds on the device
+        params = []
+        for d in dyns:
+            pv, ov = d.get("p"), d.get("o")
+            params.append((pv[0] if pv is not None else _I32_MIN,
+                           pv[1] if pv is not None else _I32_MAX,
+                           ov[0] if ov is not None else _I32_MIN,
+                           ov[1] if ov is not None else _I32_MAX))
+        return {"params": torch.tensor(params, dtype=torch.int32,
+                                       device=device)}
+    return {key: _stack_term(tsig, [d[key] for d in dyns], device)
+            for tsig, key in ((sig.s_sig, "s"), (sig.p_sig, "p"),
+                              (sig.o_sig, "o")) if tsig is not None}
+
+
+def _in_set_b(col, ids):
+    """``in_set`` per member: col [B, m] (or one shared [m]) in ids [B, k]."""
+    if col.dim() == 1:
+        col = col.expand(ids.shape[0], -1)
+    col = col.contiguous()
+    pos = torch.searchsorted(ids, col).clamp(0, ids.shape[1] - 1)
+    return (ids.gather(1, pos) == col) & (col != INVALID)
+
+
+def _term_mask_b(col, sig: TermSig, vals):
+    """``_term_mask_dyn`` per member: col [B, m] or a shared [m] column."""
+    if sig.kind == "members":
+        return _in_set_b(col, vals)
+    m = (col >= vals[:, 0:1]) & (col < vals[:, 1:2])
+    for i in range(sig.n_spills):
+        m = m | ((col >= vals[:, 2 + 2 * i:3 + 2 * i])
+                 & (col < vals[:, 3 + 2 * i:4 + 2 * i]))
+    return m
+
+
+def _scan_mask_b(sig: PatternSig, spo, alive, dyn, b: int):
+    """``_scan_mask`` per member over one shared store -> bool[B, N]."""
+    s, p, o = spo[:, 0], spo[:, 1], spo[:, 2]
+    mask = ((s != INVALID) & alive)[None, :]
+    for tsig, col, key in ((sig.s_sig, s, "s"), (sig.p_sig, p, "p"),
+                           (sig.o_sig, o, "o")):
+        if tsig is not None:
+            mask = mask & _term_mask_b(col, tsig, dyn[key])
+    return mask.expand(b, -1).contiguous()
+
+
+def _overflow_b(total, cap: int):
+    return (total - cap).clamp(min=0).to(torch.int32)
+
+
+def _build_relation_b(pvars, s, p, o, ok, total, cap: int) -> BatchRelation:
+    """``_build_relation`` with [B, cap] columns."""
+    cols = []
+    seen = {}
+    eq = None
+    for v, colv in zip(pvars, (s, p, o)):
+        if v is None:
+            continue
+        if v in seen:
+            eq = (seen[v], colv)
+            continue
+        seen[v] = colv
+        cols.append(colv)
+    if eq is not None:
+        ok = ok & (eq[0] == eq[1])
+    cols = [torch.where(ok, c, INVALID) for c in cols]
+    return BatchRelation(
+        vars=tuple(seen),
+        cols=(torch.stack(cols, 1) if cols else
+              torch.zeros((ok.shape[0], 0, cap), dtype=torch.int32,
+                          device=ok.device)),
+        valid=ok,
+        overflow=_overflow_b(total, cap),
+    )
+
+
+def _stitch_compact_b(take_b, total_b, take_d, total_d, base_n: int,
+                      cap: int):
+    """``_stitch_compact`` per member: takes [B, cap], totals [B]."""
+    j = torch.arange(cap, dtype=torch.int64, device=take_b.device)
+    tb = total_b[:, None]
+    use_b = j < tb
+    di = (j - tb).clamp(0, cap - 1)
+    take = torch.where(use_b, take_b, base_n + take_d.gather(1, di))
+    total = total_b + total_d
+    return take, j < torch.clamp(total, max=cap)[:, None], total
+
+
+def _rewrite_type_bindings_b(sig: PatternSig, ds, dyn, cap: int):
+    """``_rewrite_type_bindings`` for B members: one batched K4 launch per
+    source -> (ok [B, cap], total [B], xcol [B, cap])."""
+    _, _, has_dom, has_rng = sig.extra_caps
+    args = (dyn["tid"], dyn["o"], dyn["dom"], dyn["rng"], cap, has_dom,
+            has_rng)
+    base_n = ds.base.shape[0]
+    out_b = ops.rewrite_member_compact_batched(ds.base, ds.base_alive, *args)
+    out_d = None
+    if ds.delta is not None:
+        out_d = ops.rewrite_member_compact_batched(ds.delta, ds.delta_alive,
+                                                   *args)
+    take_s, ok_s, total_s = out_b[0:3]
+    if out_d is not None:
+        take_s, ok_s, total_s = _stitch_compact_b(
+            out_b[0], out_b[2], out_d[0], out_d[2], base_n, cap)
+    vals_s = ops.two_source_gather(ds.base, ds.delta, take_s)[..., 0]
+    if not has_rng:
+        return ok_s, total_s, vals_s
+    take_o, total_o = out_b[3], out_b[5]
+    if out_d is not None:
+        take_o, _, total_o = _stitch_compact_b(
+            out_b[3], out_b[5], out_d[3], out_d[5], base_n, cap)
+    vals_o = ops.two_source_gather(ds.base, ds.delta, take_o)[..., 2]
+    j = torch.arange(cap, dtype=torch.int64, device=vals_s.device)
+    ts = total_s[:, None]
+    vo = vals_o.gather(1, (j - ts).clamp(0, cap - 1))
+    xcol = torch.where(j < ts, vals_s, vo)
+    total = total_s + total_o
+    return j < torch.clamp(total, max=cap)[:, None], total, xcol
+
+
+def _scan_compact_b(sig: PatternSig, ds, dyn, cap: int, b: int):
+    """``_scan_compact`` for B members: the fused predicate through the
+    batched K2, any other through a [B, N] mask and the batched K1."""
+    base_n = ds.base.shape[0]
+    if sig.fused:
+        prm = dyn["params"]
+        take_b, ok_b, tb = ops.masked_interval_compact_batched(
+            ds.base[:, 1], ds.base[:, 2], ds.base_alive, prm, cap)
+        if ds.delta is None:
+            return take_b, ok_b, tb
+        take_d, _, td = ops.masked_interval_compact_batched(
+            ds.delta[:, 1], ds.delta[:, 2], ds.delta_alive, prm, cap)
+        return _stitch_compact_b(take_b, tb, take_d, td, base_n, cap)
+    take_b, ok_b, tb = ops.compact_indices_batched(
+        _scan_mask_b(sig, ds.base, ds.base_alive, dyn, b), cap)
+    if ds.delta is None:
+        return take_b, ok_b, tb
+    take_d, _, td = ops.compact_indices_batched(
+        _scan_mask_b(sig, ds.delta, ds.delta_alive, dyn, b), cap)
+    return _stitch_compact_b(take_b, tb, take_d, td, base_n, cap)
+
+
+def _eval_pattern_b(sig: PatternSig, cap: int, stores, dyn, b: int):
+    """``_eval_pattern`` for B members -> (BatchRelation, totals [B])."""
+    if sig.strategy == "slice":
+        ds = stores[sig.store]
+        src, ok, total, _ = ops.segment_positions_batched(
+            dyn["starts"], dyn["lens"], cap)
+        g = ops.two_source_gather(ds.base, ds.delta, src)
+        ok = ok & ops.two_source_gather(ds.base_alive, ds.delta_alive, src)
+        s, p, o = g[..., 0], g[..., 1], g[..., 2]
+        for posi in sig.residual:
+            tsig = (sig.s_sig, sig.p_sig, sig.o_sig)[posi]
+            ok = ok & _term_mask_b((s, p, o)[posi], tsig,
+                                   dyn[("s", "p", "o")[posi]])
+        return _build_relation_b(sig.pvars, s, p, o, ok, total, cap), total
+    ds = stores["scan"]
+    if sig.extra_caps is not None:
+        ok, total, xcol = _rewrite_type_bindings_b(sig, ds, dyn, cap)
+        var = next(v for v in sig.pvars if v is not None)
+        rel = BatchRelation(vars=(var,),
+                            cols=torch.where(ok, xcol, INVALID)[:, None, :],
+                            valid=ok, overflow=_overflow_b(total, cap))
+        return rel, total
+    take, ok, total = _scan_compact_b(sig, ds, dyn, cap, b)
+    g = ops.two_source_gather(ds.base, ds.delta, take)
+    return _build_relation_b(sig.pvars, g[..., 0], g[..., 1], g[..., 2], ok,
+                             total, cap), total
+
+
+def _eval_inl_b(sig: PatternSig, cap: int, stores, dyn, rel: BatchRelation):
+    """``_eval_inl`` for B members.  The probes of all members are one
+    flattened [B * q] batch per source (one ``pair_range`` launch, or one
+    windowed search), then the hit ranges expand per member."""
+    ds = stores[sig.store]
+    prim, sec = key_cols(sig.store)
+    probe = rel.col(sig.pvars[sig.probe_pos])
+    b, k = probe.shape
+    q = sig.n_pids * k
+    qlo1 = torch.where(rel.valid, probe, 0)
+    valid = rel.valid.repeat(1, sig.n_pids)
+    qlo = qlo1.repeat(1, sig.n_pids)
+    qhi = torch.where(valid, dyn["pid"].repeat_interleave(k, dim=1), INVALID)
+    flat = (qhi.reshape(-1), qlo.reshape(-1), valid.reshape(-1))
+    starts, lens = (t.view(b, q)
+                    for t in _inl_ranges(ds.base, prim, sec, *flat))
+    if ds.delta is not None:
+        st_d, ln_d = (t.view(b, q)
+                      for t in _inl_ranges(ds.delta, prim, sec, *flat))
+        starts = torch.cat([starts, st_d + ds.base.shape[0]], 1)
+        lens = torch.cat([lens, ln_d], 1)
+    src, ok, total, seg = ops.segment_positions_batched(starts, lens, cap)
+    rows = ops.two_source_gather(ds.base, ds.delta, src)
+    ok = ok & ops.two_source_gather(ds.base_alive, ds.delta_alive, src)
+    probe_row = seg.long() % k
+
+    s, p, o = rows[..., 0], rows[..., 1], rows[..., 2]
+    for posi in sig.residual:
+        tsig = (sig.s_sig, sig.p_sig, sig.o_sig)[posi]
+        ok = ok & _term_mask_b((s, p, o)[posi], tsig,
+                               dyn[("s", "p", "o")[posi]])
+
+    nv = len(rel.vars)
+    carried = rel.cols.gather(2, probe_row[:, None, :].expand(b, nv, cap))
+    out_vars = list(rel.vars)
+    out_cols = [carried[:, i] for i in range(nv)]
+    seen = dict(zip(rel.vars, out_cols))
+    for v, colv in zip(sig.pvars, (s, p, o)):
+        if v is None:
+            continue
+        if v in seen:
+            ok = ok & (seen[v] == colv)
+            continue
+        seen[v] = colv
+        out_vars.append(v)
+        out_cols.append(colv)
+    out_cols = [torch.where(ok, c, INVALID) for c in out_cols]
+    return BatchRelation(
+        vars=tuple(out_vars),
+        cols=torch.stack(out_cols, 1),
+        valid=ok,
+        overflow=rel.overflow + _overflow_b(total, cap),
+    ), total
+
+
+def _lexsort_b(cols):
+    """``_lexsort`` per member: each [B, n] key sorted along dim 1."""
+    if not cols:
+        raise TypeError("need sequence of keys with len > 0 in lexsort")
+    if len(cols) == 1:
+        return torch.sort(cols[0], dim=1, stable=True).indices
+    perm = torch.sort(pair_key(cols[-2], cols[-1]), dim=1, stable=True).indices
+    for c in reversed(cols[:-2]):
+        perm = perm.gather(1, torch.sort(c.gather(1, perm), dim=1,
+                                         stable=True).indices)
+    return perm
+
+
+def _take_cols(cols, idx):
+    """cols [B, n_vars, n] at per-member slots idx [B, m] -> [B, n_vars, m]."""
+    return cols.gather(2, idx[:, None, :].expand(-1, cols.shape[1], -1))
+
+
+def join_b(a: BatchRelation, b: BatchRelation, cap: int) -> BatchRelation:
+    """``join`` per member: each member's build side sorted along dim 1,
+    probed by ``torch.searchsorted`` over [B, N] sorted rows."""
+    shared = [v for v in a.vars if v in b.vars]
+    if not shared:
+        raise ValueError("cartesian products not supported — reorder the plan")
+    key = shared[0]
+    ka = torch.where(a.valid, a.col(key), INVALID)
+    aperm = torch.sort(ka, dim=1, stable=True).indices
+    a_cols = _take_cols(a.cols, aperm)
+    ka_s = ka.gather(1, aperm)
+
+    kb_ = torch.where(b.valid, b.col(key), INVALID)
+    L = torch.searchsorted(ka_s, kb_)
+    R = torch.searchsorted(ka_s, kb_, right=True)
+    counts = torch.where(b.valid & (kb_ != INVALID), R - L, 0)
+    offsets = torch.cumsum(counts, 1)
+    total = offsets[:, -1]
+    starts = offsets - counts
+
+    nb = counts.shape[0]
+    out_idx = torch.arange(cap, dtype=torch.int64, device=ka.device)
+    probe = torch.searchsorted(offsets, out_idx.expand(nb, cap).contiguous(),
+                               right=True)
+    probe_c = probe.clamp(0, counts.shape[1] - 1)
+    rank = out_idx - starts.gather(1, probe_c)
+    build_row = (L.gather(1, probe_c) + rank).clamp(0, ka_s.shape[1] - 1)
+    ok = out_idx < torch.clamp(total, max=cap)[:, None]
+
+    a_g = _take_cols(a_cols, build_row)
+    b_g = _take_cols(b.cols, probe_c)
+    for v in shared[1:]:
+        ok = ok & (a_g[:, a.vars.index(v)] == b_g[:, b.vars.index(v)])
+
+    out_vars = tuple(a.vars) + tuple(v for v in b.vars if v not in a.vars)
+    rows = [torch.where(ok, a_g[:, i], INVALID) for i in range(len(a.vars))]
+    for j, v in enumerate(b.vars):
+        if v not in a.vars:
+            rows.append(torch.where(ok, b_g[:, j], INVALID))
+    overflow = _overflow_b(total, cap) + a.overflow + b.overflow
+    return BatchRelation(vars=out_vars, cols=torch.stack(rows, 1), valid=ok,
+                         overflow=overflow)
+
+
+def distinct_b(rel: BatchRelation, select: tuple, cap: int) -> BatchRelation:
+    """``distinct`` per member; the keep masks of all members go through
+    one batched K1 launch."""
+    cols = [torch.where(rel.valid, rel.col(v), INVALID) for v in select]
+    perm = _lexsort_b(cols)
+    cols = [c.gather(1, perm) for c in cols]
+    valid = rel.valid.gather(1, perm)
+    first = torch.ones_like(valid)
+    neq = torch.zeros_like(valid[:, 1:])
+    for c in cols:
+        neq = neq | (c[:, 1:] != c[:, :-1])
+    first[:, 1:] = neq
+    keep = first & valid
+    take, ok, n = ops.compact_indices_batched(keep, cap)
+    take = take.long()
+    out = torch.stack([torch.where(ok, c.gather(1, take), INVALID)
+                       for c in cols], 1)
+    return BatchRelation(
+        vars=select, cols=out, valid=ok,
+        overflow=rel.overflow + _overflow_b(n, cap),
+    )
+
+
+# ---------------------------------------------------------------------------
 # The engine: host-side resolution + planning, device execution
 # ---------------------------------------------------------------------------
 
@@ -857,6 +1217,33 @@ class QueryEngine:
 
         return run_device
 
+    @staticmethod
+    def _make_run_device_batched(sigs, caps, join_cap: int, select):
+        """The batched plan body: ``run_device`` with a member axis.
+
+        Takes the shared stores, the per-pattern constants stacked along B
+        (``_stack_dyn``) and B; returns (cols int32[B, n_select, join_cap],
+        valid bool[B, join_cap], overflow int32[B], totals int32[B,
+        n_patterns]) — member b's slices what the solo body returns for its
+        constants.
+        """
+
+        def run_device(stores, dyns, b: int):
+            rel = None
+            totals = []
+            for sig, cap, dyn in zip(sigs, caps, dyns):
+                if sig.strategy == "inl":
+                    rel, t = _eval_inl_b(sig, cap, stores, dyn, rel)
+                else:
+                    r, t = _eval_pattern_b(sig, cap, stores, dyn, b)
+                    rel = r if rel is None else join_b(rel, r, join_cap)
+                totals.append(t)
+            out = distinct_b(rel, select, join_cap)
+            return (out.cols, out.valid, out.overflow,
+                    torch.stack(totals, 1).to(torch.int32))
+
+        return run_device
+
     def _executable(self, key, sigs, caps, join_cap: int, select):
         """Memoized plan body: signature + buckets -> function."""
         fn = self._exec_cache.get(key)
@@ -870,6 +1257,23 @@ class QueryEngine:
         else:
             self.cache_stats["hits"] += 1
             REGISTRY.counter("query/plan_cache", event="hit",
+                             sig=slabel).inc()
+        return fn
+
+    def _batch_executable(self, key, sigs, caps, join_cap: int, select):
+        """Memoized batched plan body: one call answers a whole group of
+        same-signature requests (the reference's vmapped executable)."""
+        fn = self._exec_cache.get(key)
+        slabel = sig_label(sigs)
+        if fn is None:
+            self.cache_stats["misses"] += 1
+            REGISTRY.counter("query/plan_cache", event="miss_batch",
+                             sig=slabel).inc()
+            fn = self._make_run_device_batched(sigs, caps, join_cap, select)
+            self._exec_cache[key] = fn
+        else:
+            self.cache_stats["hits"] += 1
+            REGISTRY.counter("query/plan_cache", event="hit_batch",
                              sig=slabel).inc()
         return fn
 
@@ -1073,6 +1477,122 @@ class QueryEngine:
             join_cap *= 2
             caps = [c * 2 for c in caps]
         raise RuntimeError("query kept overflowing its capacity buckets")
+
+    # -- micro-batched execution ---------------------------------------------
+    def _batch_caps(self, planned_group):
+        """Unified capacity buckets for a same-signature batch.
+
+        Member caps start at the elementwise max (the shared body must hold
+        the largest member), then observed selectivities — looked up per
+        member by ``(sig, probe-constant bucket)`` — adjust them: with
+        every member observed the cap becomes the largest member's observed
+        floor (it may shrink); while any member is unobserved, observations
+        only grow it.
+        """
+        sigs = planned_group[0][0]
+        caps = [max(p[2][j] for p in planned_group)
+                for j in range(len(sigs))]
+        join_cap = max(p[3] for p in planned_group)
+        store_n = max(self.view.n, 1)
+        for j, sig in enumerate(sigs):
+            obs = [self.observed_selectivity.get((sig, p[8][j]))
+                   for p in planned_group]
+            known = [o for o in obs if o is not None]
+            if not known:
+                continue
+            floor = max(self._bucket(int(o * store_n * self.slack) + 16)
+                        for o in known)
+            if len(known) == len(obs):
+                caps[j] = floor  # complete evidence: shrink allowed
+            else:
+                caps[j] = max(caps[j], floor)
+        return caps, max(join_cap, max(caps))
+
+    def run_batch(self, requests, max_retries: int = 6):
+        """Execute a batch of (patterns, select) requests in shared plan
+        bodies; returns [(rows, sel), ...] aligned with ``requests``.
+
+        Every request is planned on its own; structurally identical
+        requests are answered once and fanned out; distinct requests whose
+        patterns lower to the same signature tuple (projecting the same
+        variables) run as ONE batched plan body over their stacked
+        constants, capacities unified by :meth:`_batch_caps`.  A request
+        whose signature matches nobody else's takes the solo path.  The
+        power-of-two member count ``Bp`` stays in the cache key as in the
+        reference, but the members are not padded to it: eager torch has
+        nothing to recompile for another B.
+        """
+        results = [None] * len(requests)
+        uniq_keys, uniq = {}, []  # structural dedupe: answer once, fan out
+        for i, (pats, select) in enumerate(requests):
+            k = (tuple((p.s, p.p, p.o) for p in pats),
+                 tuple(select) if select is not None else None)
+            j = uniq_keys.get(k)
+            if j is None:
+                uniq_keys[k] = len(uniq)
+                uniq.append((self._plan(pats, select), [i]))
+            else:
+                uniq[j][1].append(i)
+        groups = {}
+        for planned, members in uniq:
+            groups.setdefault((planned[0], planned[4]), []).append(
+                (planned, members))
+        for (sigs, sel), entries in groups.items():
+            if len(entries) == 1:
+                planned, members = entries[0]
+                rows, _ = self._run_planned(planned, max_retries)
+                for i in members:
+                    results[i] = (rows, sel)
+                continue
+            caps, join_cap = self._batch_caps([e[0] for e in entries])
+            stores = entries[0][0][5]
+            B = len(entries)
+            Bp = _pow2(B, floor=2)
+            dyns = tuple(_stack_dyn(sig, [e[0][1][j] for e in entries],
+                                    self.device)
+                         for j, sig in enumerate(sigs))
+            REGISTRY.histogram("query/batch_size", mode=self.mode).observe(B)
+            slabel = sig_label(sigs)
+            for attempt in range(max_retries):
+                key = ("bexec", self.mode, sigs, tuple(caps), join_cap,
+                       sel, Bp)
+                fn = self._batch_executable(key, sigs, tuple(caps),
+                                            join_cap, sel)
+                t0 = time.perf_counter()
+                cols, valid, overflow, totals = fn(stores, dyns, B)
+                ok = int(overflow.max()) == 0  # one read for the batch
+                REGISTRY.histogram("query/exec_seconds", sig=slabel).observe(
+                    time.perf_counter() - t0)
+                if ok:
+                    if attempt:
+                        REGISTRY.histogram(
+                            "join/capacity_depth", site="batch", sig=slabel,
+                            shard="local").observe(attempt)
+                    break
+                obs_trace.event("overflow_retry", attempt=attempt,
+                                join_cap=join_cap, batch=B)
+                REGISTRY.counter("query/overflow_retries").inc()
+                REGISTRY.counter("join/capacity_retry", site="batch",
+                                 sig=slabel, shard="local").inc()
+                join_cap *= 2
+                caps = [c * 2 for c in caps]
+            else:
+                raise RuntimeError(
+                    "batched query kept overflowing its capacity buckets")
+            # one host read for the counts and totals, one copy of the rows
+            meta = torch.cat([valid.sum(1),
+                              totals.reshape(-1).long()]).tolist()
+            n_rows, totals_h = meta[:B], meta[B:]
+            cols_h = cols[:, :, :max(n_rows)].cpu().numpy()
+            npat = len(sigs)
+            for b, (planned, members) in enumerate(entries):
+                self._record_observed(sigs, planned[7],
+                                      totals_h[b * npat:(b + 1) * npat],
+                                      planned[8])
+                rows = cols_h[b][:, :n_rows[b]].T
+                for i in members:
+                    results[i] = (rows, sel)
+        return results
 
     def explain(self, patterns, select=None, execute: bool = True) -> dict:
         """EXPLAIN: per-pattern strategy, buckets, estimated-vs-observed rows.

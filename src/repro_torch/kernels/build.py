@@ -10,7 +10,8 @@ every source at once, one ``nvcc`` per source, all started together.
 
 A wrapper launches through an ``Entry``: its C function, resolved on the
 first call and kept, called with the raw pointer of PyTorch's current
-stream, its returned ``cudaGetLastError`` checked.  The wrappers' own
+stream, its returned ``cudaGetLastError`` checked; then it counts the
+launch with ``launched``.  The wrappers' own
 argument checks are plain attribute tests, so one launch costs the
 caller a few microseconds of Python.
 """
@@ -133,6 +134,17 @@ def stream(device: torch.device) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def launched(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of the wrapper's kernel
+    launches: under a lock, as wrappers launch from several threads (the
+    serving runtime's workers)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def require_cuda(first: torch.Tensor, *rest: torch.Tensor) -> torch.device:

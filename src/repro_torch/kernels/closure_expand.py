@@ -58,7 +58,7 @@ def closure_expand(conc: torch.Tensor, sorted_ids: torch.Tensor,
         return out
     _EXPAND(conc.data_ptr(), n, sorted_ids.data_ptr(), c,
             anc_table.data_ptr(), d, out.data_ptr(), build.stream(dev))
-    closure_expand.launches += 1
+    build.launched(closure_expand)
     return out
 
 

@@ -17,6 +17,14 @@
 //                                      tid && o in mem) || p in dom and, if
 //                                      has_rng, the object stream p in rng,
 //                                      each && alive && s != INVALID)
+//    The first, third and fourth also run with a member axis — what
+//    jax.vmap of the TPU kernel computes: B compactions of one shape and
+//    one cap in one launch, one CTA per (member, tile), each member with
+//    its own look-back state (compact_mask_batched: B masks;
+//    masked_interval_compact_batched: one store, B bounds read from device
+//    memory; member_compact_batched: one store, B member sets).  Each
+//    member's CTAs read the shared store again: a batch of B reads it B
+//    times, where the same work needs one read.
 //
 // 2. compact_tiles — tile-local compaction fused with a predicate,
 //    replacing one TPU kernel of the same file:
@@ -183,6 +191,20 @@ struct IntervalPred {
   const uint8_t* alive;  // read only when Masked
   int32_t plo, phi, olo, ohi;
   int64_t n;
+  // int32[members, 4] bounds in device memory (the batched entry), read by
+  // select; nullptr: the host's plo..ohi above hold for the one member
+  const int32_t* params;
+  static constexpr bool kStaged = false;
+  __device__ __forceinline__ int64_t rows() const { return n; }
+  __device__ __forceinline__ void select(int b) {
+    if (params != nullptr) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(params) + b);
+      plo = v.x;
+      phi = v.y;
+      olo = v.z;
+      ohi = v.w;
+    }
+  }
   __device__ __forceinline__ void stage(int32_t*) {}
   __device__ __forceinline__ bool in_range(int32_t pv, int32_t ov) const {
     return pv >= plo && pv < phi && ov >= olo && ov < ohi;
@@ -217,6 +239,9 @@ struct IntervalPred {
 struct IdSet {
   const int32_t* ids;  // device memory, or shared memory once staged
   int k;
+
+  // Member b's set: sets of one member axis lie [members, k] contiguous.
+  __device__ __forceinline__ void select(int b) { ids += (int64_t)b * k; }
 
   // Copy the set into shared memory at ``smem`` if it fits; returns the
   // number of int32 slots taken there (0 when it stays in device memory).
@@ -278,8 +303,17 @@ struct MemberPred {
   int32_t tid;
   IdSet mem, dom, rng;
   int64_t n;
+  static constexpr bool kStaged = true;
+  __device__ __forceinline__ int64_t rows() const { return n; }
+  // Member b's sets (tid and the store are shared by the members).
+  __device__ __forceinline__ void select(int b) {
+    mem.select(b);
+    if constexpr (HasDom) dom.select(b);
+    if constexpr (HasRng) rng.select(b);
+  }
 
-  // Run by every thread of the CTA before the first row; a barrier follows.
+  // Run by every thread of the CTA, after select, before the first row; a
+  // barrier follows.
   __device__ __forceinline__ void stage(int32_t* smem) {
     int used = mem.stage(smem);
     if constexpr (HasDom) used += dom.stage(smem + used);
@@ -312,7 +346,7 @@ struct MemberPred {
     warp_bits(*this, v0, b);
   }
 
-  // Shared memory ``stage`` takes, in bytes.
+  // Shared memory ``stage`` takes, in bytes (one member's sets).
   size_t staged_bytes() const {
     size_t k = mem.k <= kStageMax ? mem.k : 0;
     if (HasDom && dom.k <= kStageMax) k += dom.k;
@@ -422,9 +456,18 @@ compact_tiles(Pred pred, int64_t n, int block, int32_t* local,
 template <int NS>
 struct MaskBits {
   static constexpr int kStreams = NS;
+  static constexpr bool kStaged = false;
   const uint8_t* mask[NS];
   int64_t n;
-  int shift;  // virtual rows before row 0
+  int64_t member_stride;  // bytes between two members' masks (K1 batched)
+  int shift;  // virtual rows before row 0: the host's, or select's
+  __device__ __forceinline__ int64_t rows() const { return n + shift; }
+  // Member b's masks; the shift follows mask[0]'s alignment.
+  __device__ __forceinline__ void select(int b) {
+#pragma unroll
+    for (int st = 0; st < NS; ++st) mask[st] += (int64_t)b * member_stride;
+    shift = (int)(reinterpret_cast<uintptr_t>(mask[0]) & 15);
+  }
   __device__ __forceinline__ void stage(int32_t*) {}
   // Hits of virtual rows v0 .. v0 + 15 (v0 a multiple of 16), 16 bits a mask.
   __device__ __forceinline__ void bits(int64_t v0, unsigned* b) const {
@@ -475,16 +518,26 @@ __device__ __forceinline__ int field(unsigned long long w, int f) {
 
 template <int NS>
 struct LookbackOut {
-  int32_t* take;  // int32[NS * cap]: stream st's slots at st * cap
-  uint8_t* ok;  // uint8[NS * cap], laid out as take
-  int32_t* total;  // int32[NS]
-  unsigned long long* status;  // NS * ntiles words, stream st's at st * ntiles
+  // Member b's stream st is output stream j = st * members + b.
+  int32_t* take;  // int32[NS * members * cap]: stream j's slots at j * cap
+  uint8_t* ok;  // uint8[NS * members * cap], laid out as take
+  int32_t* total;  // int32[NS * members]
+  unsigned long long* status;  // stream j's ntiles words at j * ntiles
   unsigned* ticket;
 };
 
-template <typename Pred>
+// One CTA per (member, tile).  With a member axis (Members) tickets are
+// decoded member-major (member b holds tickets b * ntiles .. b * ntiles +
+// ntiles - 1, its tiles in order), so a tile looks back only over earlier
+// tickets of its own member: CTAs that are running or done, as for one
+// member.  Pred::select then points the predicate at the member's masks,
+// bounds or sets before any row is read, and its virtual rows replace nv.
+// Without it (the solo entries) the predicate stays in the kernel's
+// parameter space, as the member axis's runtime fields would cost the solo
+// kernels registers and occupancy.
+template <typename Pred, bool Members>
 __global__ void __launch_bounds__(kScanThreads)
-compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
+compact_lookback(Pred pred, int64_t nv, int ntiles, int members, int64_t cap,
                  LookbackOut<Pred::kStreams> out) {
   constexpr int NS = Pred::kStreams;
   static_assert(NS * kChunks <= 4, "the counts share one 64-bit word");
@@ -494,9 +547,19 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
   __shared__ int s_tile;
   __shared__ unsigned s_excl[NS];
   if (threadIdx.x == 0) s_tile = (int)atomicAdd(out.ticket, 1u);
-  pred.stage(s_sets);
+  if constexpr (!Members) pred.stage(s_sets);
   __syncthreads();
-  const int tile = s_tile;
+  int member = 0, tile = s_tile;
+  if constexpr (Members) {
+    member = s_tile / ntiles;
+    tile = s_tile - member * ntiles;
+    pred.select(member);
+    nv = pred.rows();
+    if constexpr (Pred::kStaged) {
+      pred.stage(s_sets);
+      __syncthreads();
+    }
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t base =
@@ -537,7 +600,8 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
     unsigned agg = 0;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) agg += (unsigned)field(aggp, st * kChunks + c);
-    unsigned long long* status = out.status + (int64_t)st * ntiles;
+    unsigned long long* status =
+        out.status + (Members ? (int64_t)st * members + member : st) * ntiles;
     unsigned excl = 0;
     if (tile == 0) {
       if (lane == 0) publish(status, kPrefix | agg);
@@ -551,9 +615,11 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
   __syncthreads();
 #pragma unroll
   for (int st = 0; st < NS; ++st) {
+    // the output stream
+    const int64_t j = Members ? (int64_t)st * members + member : st;
     int64_t start = s_excl[st];
-    int32_t* take = out.take + st * cap;
-    uint8_t* ok = out.ok + st * cap;
+    int32_t* take = out.take + j * cap;
+    uint8_t* ok = out.ok + j * cap;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int f = st * kChunks + c;
@@ -568,10 +634,10 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
           b &= b - 1;
         }
         __syncthreads();
-        for (int j = threadIdx.x; j < tc; j += kScanThreads) {
-          const int64_t r = start + j;
+        for (int jj = threadIdx.x; jj < tc; jj += kScanThreads) {
+          const int64_t r = start + jj;
           if (r < cap) {
-            take[r] = s_rows[j + (j >> 4)];
+            take[r] = s_rows[jj + (jj >> 4)];
             ok[r] = 1;
           }
         }
@@ -579,21 +645,25 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int64_t cap,
       }
       start += tc;
     }
-    if (tile == ntiles - 1 && threadIdx.x == 0) out.total[st] = (int32_t)start;
+    if (tile == ntiles - 1 && threadIdx.x == 0) out.total[j] = (int32_t)start;
   }
 }
 
 // Zero the outputs and the look-back state (one buffer of zero_bytes that
-// starts at take and holds ok, total and scratch), then launch.
-template <typename Pred>
-int launch_lookback(const Pred& pred, long long nv, long long cap,
-                    void* take, void* ok, void* total, void* scratch,
-                    long long scratch_words, long long zero_bytes,
-                    size_t smem_bytes, void* stream) {
+// starts at take and holds ok, total and scratch), then launch one CTA per
+// (member, tile); nv is the most virtual rows a member has.  Members: the
+// batched entries' instantiation (any number of members, 1 included).
+template <bool Members, typename Pred>
+int launch_lookback(const Pred& pred, long long members, long long nv,
+                    long long cap, void* take, void* ok, void* total,
+                    void* scratch, long long scratch_words,
+                    long long zero_bytes, size_t smem_bytes, void* stream) {
   constexpr int NS = Pred::kStreams;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long tiles = nv > 0 ? (nv + kTileRows - 1) / kTileRows : 1;
-  if (NS * tiles + 1 > scratch_words || cap < 0 || zero_bytes < 0)
+  if (members < 1 || (!Members && members != 1) ||
+      NS * members * tiles + 1 > scratch_words || cap < 0 || zero_bytes < 0 ||
+      members * tiles >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(take, 0, (size_t)zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
@@ -601,34 +671,84 @@ int launch_lookback(const Pred& pred, long long nv, long long cap,
   LookbackOut<NS> out{static_cast<int32_t*>(take), static_cast<uint8_t*>(ok),
                       static_cast<int32_t*>(total), words + 1,
                       reinterpret_cast<unsigned*>(words)};
-  compact_lookback<Pred><<<(unsigned)tiles, kScanThreads, smem_bytes, st>>>(
-      pred, nv, (int)tiles, cap, out);
+  compact_lookback<Pred, Members><<<(unsigned)(members * tiles), kScanThreads,
+                                    smem_bytes, st>>>(pred, nv, (int)tiles,
+                                                      (int)members, cap, out);
   return (int)cudaGetLastError();
 }
 
-template <bool HasDom, bool HasRng>
+// The most virtual rows of ``members`` masks of n rows, member_stride bytes
+// apart from ``m``: n plus the largest offset from 16 bytes among them.
+long long mask_rows(const uint8_t* m, long long members, long long n,
+                    long long member_stride) {
+  int shift = 0;
+  for (long long b = 0; b < members; ++b) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(m + b * member_stride);
+    const int s = (int)(at & 15);
+    shift = s > shift ? s : shift;
+    if (member_stride % 16 == 0) break;  // every member at one offset
+  }
+  return n + shift;
+}
+
+template <bool Members, bool HasDom, bool HasRng>
 int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
                   long long stride, const uint8_t* alive, int tid, IdSet mem,
-                  IdSet dom, IdSet rng, long long n, long long cap,
-                  void* take, void* ok, void* total, void* scratch,
-                  long long scratch_words, long long zero_bytes,
+                  IdSet dom, IdSet rng, long long members, long long n,
+                  long long cap, void* take, void* ok, void* total,
+                  void* scratch, long long scratch_words, long long zero_bytes,
                   void* stream) {
   MemberPred<HasDom, HasRng> pred{s, p, o, stride, alive, tid, mem, dom, rng,
                                   n};
-  return launch_lookback(pred, n, cap, take, ok, total, scratch,
-                         scratch_words, zero_bytes, pred.staged_bytes(),
-                         stream);
+  return launch_lookback<Members>(pred, members, n, cap, take, ok, total,
+                                  scratch, scratch_words, zero_bytes,
+                                  pred.staged_bytes(), stream);
+}
+
+template <bool Members>
+int member_entry(const void* s, const void* p, const void* o,
+                 long long stride, const void* alive, int tid,
+                 const void* mem, int mem_k, const void* dom, int dom_k,
+                 const void* rng, int rng_k, int has_dom, int has_rng,
+                 long long members, long long n, long long cap, void* take,
+                 void* ok, void* total, void* scratch,
+                 long long scratch_words, long long zero_bytes,
+                 void* stream) {
+  const int32_t* sc = static_cast<const int32_t*>(s);
+  const int32_t* pc = static_cast<const int32_t*>(p);
+  const int32_t* oc = static_cast<const int32_t*>(o);
+  const uint8_t* al = static_cast<const uint8_t*>(alive);
+  IdSet ms{static_cast<const int32_t*>(mem), mem_k};
+  IdSet ds{static_cast<const int32_t*>(dom), dom_k};
+  IdSet rs{static_cast<const int32_t*>(rng), rng_k};
+  if (has_dom && has_rng)
+    return launch_member<Members, true, true>(
+        sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
+        total, scratch, scratch_words, zero_bytes, stream);
+  if (has_dom)
+    return launch_member<Members, true, false>(
+        sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
+        total, scratch, scratch_words, zero_bytes, stream);
+  if (has_rng)
+    return launch_member<Members, false, true>(
+        sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
+        total, scratch, scratch_words, zero_bytes, stream);
+  return launch_member<Members, false, false>(
+      sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
+      total, scratch, scratch_words, zero_bytes, stream);
 }
 
 }  // namespace
 
 // The look-back entries (compact_mask, dual_compact_mask,
-// masked_interval_compact, member_compact) share their output arguments:
-// one buffer of zero_bytes starting at take, which the entry zeroes, holds
-// take (int32[S * cap]), ok (uint8[S * cap]), total (int32[S]) and scratch
-// (scratch_words >= S * ceil((n + 15) / 8192) + 1 int64 words: the ticket,
-// then each stream's tile status words), S being the number of output
-// streams.
+// masked_interval_compact, member_compact and the batched entries of the
+// first, third and fourth) share their output arguments: one buffer of
+// zero_bytes starting at take, which the entry zeroes, holds take
+// (int32[S * B * cap]), ok (uint8[S * B * cap]), total (int32[S * B]) and
+// scratch (scratch_words >= S * B * ceil((n + 15) / 8192) + 1 int64 words:
+// the ticket, then each output stream's tile status words), S being the
+// number of output streams per member and B the number of members (1 for
+// the solo entries); member b's stream st is output stream st * B + b.
 
 // mask: uint8[n] (torch.bool), any alignment, n < 2**31.
 extern "C" int compact_mask(const void* mask, long long n, long long cap,
@@ -637,9 +757,25 @@ extern "C" int compact_mask(const void* mask, long long n, long long cap,
                             void* stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const int shift = (int)(reinterpret_cast<uintptr_t>(m) & 15);
-  MaskBits<1> pred{{m}, n, shift};
-  return launch_lookback(pred, n + shift, cap, take, ok, total, scratch,
-                         scratch_words, zero_bytes, 0, stream);
+  MaskBits<1> pred{{m}, n, 0, shift};
+  return launch_lookback<false>(pred, 1, n + shift, cap, take, ok, total,
+                                scratch, scratch_words, zero_bytes, 0, stream);
+}
+
+// K1 over a member axis: members masks of n rows, member b's at mask +
+// b * member_stride bytes (each at any alignment), compacted in one launch.
+extern "C" int compact_mask_batched(const void* mask, long long members,
+                                    long long n, long long member_stride,
+                                    long long cap, void* take, void* ok,
+                                    void* total, void* scratch,
+                                    long long scratch_words,
+                                    long long zero_bytes, void* stream) {
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  MaskBits<1> pred{{m}, n, member_stride, 0};
+  return launch_lookback<true>(pred, members,
+                               mask_rows(m, members, n, member_stride), cap,
+                               take, ok, total, scratch, scratch_words,
+                               zero_bytes, 0, stream);
 }
 
 // mask_a, mask_b: uint8[n] (torch.bool), each at any alignment, n < 2**31;
@@ -651,9 +787,9 @@ extern "C" int dual_compact_mask(const void* mask_a, const void* mask_b,
                                  void* stream) {
   const uint8_t* a = static_cast<const uint8_t*>(mask_a);
   const int shift = (int)(reinterpret_cast<uintptr_t>(a) & 15);
-  MaskBits<2> pred{{a, static_cast<const uint8_t*>(mask_b)}, n, shift};
-  return launch_lookback(pred, n + shift, cap, take, ok, total, scratch,
-                         scratch_words, zero_bytes, 0, stream);
+  MaskBits<2> pred{{a, static_cast<const uint8_t*>(mask_b)}, n, 0, shift};
+  return launch_lookback<false>(pred, 1, n + shift, cap, take, ok, total,
+                                scratch, scratch_words, zero_bytes, 0, stream);
 }
 
 // p, o: int32 columns with ``stride`` elements between rows (3 for the
@@ -668,9 +804,26 @@ extern "C" int masked_interval_compact(const void* p, const void* o,
   IntervalPred<true> pred{static_cast<const int32_t*>(p),
                           static_cast<const int32_t*>(o), stride,
                           static_cast<const uint8_t*>(alive),
-                          plo, phi, olo, ohi, n};
-  return launch_lookback(pred, n, cap, take, ok, total, scratch,
-                         scratch_words, zero_bytes, 0, stream);
+                          plo, phi, olo, ohi, n, nullptr};
+  return launch_lookback<false>(pred, 1, n, cap, take, ok, total, scratch,
+                                scratch_words, zero_bytes, 0, stream);
+}
+
+// K2 over a member axis: one store (p, o, alive as above) shared by the
+// members, member b's bounds (plo, phi, olo, ohi) at params[4b .. 4b + 3]
+// in device memory (int32, 16-byte aligned), read by its own CTAs.
+extern "C" int masked_interval_compact_batched(
+    const void* p, const void* o, long long stride, const void* alive,
+    const void* params, long long members, long long n, long long cap,
+    void* take, void* ok, void* total, void* scratch, long long scratch_words,
+    long long zero_bytes, void* stream) {
+  IntervalPred<true> pred{static_cast<const int32_t*>(p),
+                          static_cast<const int32_t*>(o), stride,
+                          static_cast<const uint8_t*>(alive),
+                          0, 0, 0, 0, n,
+                          static_cast<const int32_t*>(params)};
+  return launch_lookback<true>(pred, members, n, cap, take, ok, total, scratch,
+                               scratch_words, zero_bytes, 0, stream);
 }
 
 // masked_interval_compact's predicate without the alive column, compacted
@@ -681,7 +834,7 @@ extern "C" int interval_compact(const void* p, const void* o, long long stride,
                                 void* counts, void* stream) {
   IntervalPred<false> pred{static_cast<const int32_t*>(p),
                            static_cast<const int32_t*>(o), stride, nullptr,
-                           plo, phi, olo, ohi, n};
+                           plo, phi, olo, ohi, n, nullptr};
   compact_tiles<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       pred, n, block, static_cast<int32_t*>(local),
       static_cast<int32_t*>(counts));
@@ -701,26 +854,24 @@ extern "C" int member_compact(const void* s, const void* p, const void* o,
                               void* total, void* scratch,
                               long long scratch_words, long long zero_bytes,
                               void* stream) {
-  const int32_t* sc = static_cast<const int32_t*>(s);
-  const int32_t* pc = static_cast<const int32_t*>(p);
-  const int32_t* oc = static_cast<const int32_t*>(o);
-  const uint8_t* al = static_cast<const uint8_t*>(alive);
-  IdSet ms{static_cast<const int32_t*>(mem), mem_k};
-  IdSet ds{static_cast<const int32_t*>(dom), dom_k};
-  IdSet rs{static_cast<const int32_t*>(rng), rng_k};
-  if (has_dom && has_rng)
-    return launch_member<true, true>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                     n, cap, take, ok, total, scratch,
-                                     scratch_words, zero_bytes, stream);
-  if (has_dom)
-    return launch_member<true, false>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                      n, cap, take, ok, total, scratch,
-                                      scratch_words, zero_bytes, stream);
-  if (has_rng)
-    return launch_member<false, true>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                      n, cap, take, ok, total, scratch,
-                                      scratch_words, zero_bytes, stream);
-  return launch_member<false, false>(sc, pc, oc, stride, al, tid, ms, ds, rs,
-                                     n, cap, take, ok, total, scratch,
-                                     scratch_words, zero_bytes, stream);
+  return member_entry<false>(s, p, o, stride, alive, tid, mem, mem_k, dom,
+                             dom_k, rng, rng_k, has_dom, has_rng, 1, n, cap,
+                             take, ok, total, scratch, scratch_words,
+                             zero_bytes, stream);
+}
+
+// K4 over a member axis: one store (s, p, o, alive, tid as above) shared by
+// the members; mem/dom/rng hold one set per member, [members, mem_k] etc.
+// contiguous, and each member's CTAs stage and search their own.
+extern "C" int member_compact_batched(
+    const void* s, const void* p, const void* o, long long stride,
+    const void* alive, int tid, const void* mem, int mem_k, const void* dom,
+    int dom_k, const void* rng, int rng_k, int has_dom, int has_rng,
+    long long members, long long n, long long cap, void* take, void* ok,
+    void* total, void* scratch, long long scratch_words, long long zero_bytes,
+    void* stream) {
+  return member_entry<true>(s, p, o, stride, alive, tid, mem, mem_k, dom,
+                            dom_k, rng, rng_k, has_dom, has_rng, members, n,
+                            cap, take, ok, total, scratch, scratch_words,
+                            zero_bytes, stream);
 }

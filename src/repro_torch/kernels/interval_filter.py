@@ -49,7 +49,7 @@ def interval_filter(p: torch.Tensor, o: torch.Tensor, params) -> torch.Tensor:
         return out
     _FILTER(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
             out.data_ptr(), build.stream(dev))
-    interval_filter.launches += 1
+    build.launched(interval_filter)
     return out
 
 

@@ -77,7 +77,8 @@ def merge_path(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
     ``ops.merge_gather``'s partitioned branch (both runs >= ``block``).
     """
     out, launched = _merge(a_hi, a_lo, b_hi, b_lo, block)
-    merge_path.launches += launched
+    if launched:
+        build.launched(merge_path)
     return out
 
 
@@ -87,7 +88,8 @@ def merge_path_resident(a_hi: torch.Tensor, a_lo: torch.Tensor,
     """``merge_path`` for ``ops.merge_gather``'s resident branch (a run
     shorter than ``block``): the same kernel, its own launch count."""
     out, launched = _merge(a_hi, a_lo, b_hi, b_lo, block)
-    merge_path_resident.launches += launched
+    if launched:
+        build.launched(merge_path_resident)
     return out
 
 

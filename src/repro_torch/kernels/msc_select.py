@@ -51,7 +51,7 @@ def msc_select(conc: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
         return keep
     _MSC(conc.data_ptr(), bounds.data_ptr(), g, k, keep.data_ptr(),
          build.stream(dev))
-    msc_select.launches += 1
+    build.launched(msc_select)
     return keep
 
 

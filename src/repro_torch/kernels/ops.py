@@ -8,6 +8,13 @@ interval_filter.py, msc_select.py, closure_expand.py), which runs the CUDA
 kernel on a CUDA tensor and the plain version on a CPU one.
 The helpers with no kernel (``segment_positions``, ``two_source_gather``,
 the tile stitch of K8's compaction) are plain torch.
+
+The ``*_batched`` entry points are the member-axis forms the batched plan
+body (``core/query.py``'s ``run_batch``) calls: B same-shape calls in one
+launch, each output with a leading [B].  The reference reaches the same
+functions through ``jax.vmap`` of its solo entries; here they are entry
+points of their own, kept out of ``__all__`` like ``pair_range``.  Each
+bumps its pass counter once per call.
 """
 from __future__ import annotations
 
@@ -192,6 +199,22 @@ def segment_positions(starts, lens, cap: int):
             seg.to(torch.int32))
 
 
+def segment_positions_batched(starts, lens, cap: int):
+    """``segment_positions`` per member: starts/lens [B, k] -> (src int32[B,
+    cap], ok bool[B, cap], total int32[B], seg int32[B, cap]), row b what
+    ``segment_positions(starts[b], lens[b], cap)`` gives."""
+    b = lens.shape[0]
+    offsets = torch.cumsum(lens, 1, dtype=torch.int64)
+    total = offsets[:, -1]
+    begin = offsets - lens
+    j = torch.arange(cap, dtype=torch.int64, device=lens.device)
+    seg = torch.searchsorted(offsets, j.expand(b, cap).contiguous(),
+                             right=True).clamp(0, lens.shape[1] - 1)
+    src = starts.gather(1, seg) + (j - begin.gather(1, seg))
+    return (src.to(torch.int32), j < total[:, None], total.to(torch.int32),
+            seg.to(torch.int32))
+
+
 def _assemble_compact(local, counts, cap: int, block: int):
     """Stitch tile-compacted indices into one front-compacted [cap] gather.
 
@@ -215,6 +238,13 @@ def compact_indices(mask, cap: int, block: int = 512):
     """
     _bump_pass("compact")
     return _sc.compact_mask(mask, cap)
+
+
+def compact_indices_batched(mask, cap: int):
+    """``compact_indices`` for each row of a bool[B, n] mask, in one launch
+    -> (take int32[B, cap], ok bool[B, cap], total int32[B])."""
+    _bump_pass("compact")
+    return _sc.compact_mask_batched(mask, cap)
 
 
 def dual_compact_indices(mask_a, mask_b, cap: int, block: int = 512):
@@ -248,6 +278,18 @@ def rewrite_member_compact(spo, alive, tid: int, mem, dom, rng, cap: int,
     return (*streams[0], *streams[1]) if has_rng else tuple(streams[0])
 
 
+def rewrite_member_compact_batched(spo, alive, tid: int, mem, dom, rng,
+                                   cap: int, has_dom: bool, has_rng: bool):
+    """``rewrite_member_compact`` for B members over one store in one
+    launch: ``mem``/``dom``/``rng`` int32[B, k], one padded set per member.
+    Returns the same tuple, each plane with a leading [B]."""
+    _bump_pass("member_compact")
+    streams = _sc.member_compact_batched(spo[:, 0], spo[:, 1], spo[:, 2],
+                                         alive, tid, mem, dom, rng, has_dom,
+                                         has_rng, cap)
+    return (*streams[0], *streams[1]) if has_rng else tuple(streams[0])
+
+
 def interval_compact(p, o, params, cap: int, block: int = 512):
     """Fused interval predicate + compaction in one pass.
 
@@ -268,6 +310,14 @@ def masked_interval_compact(p, o, alive, params, cap: int, block: int = 512):
     """
     _bump_pass("compact")
     return _sc.masked_interval_compact(p, o, alive, params, cap)
+
+
+def masked_interval_compact_batched(p, o, alive, params, cap: int):
+    """``masked_interval_compact`` for B members over one store in one
+    launch: ``params`` int32[B, 4] on the store's device.  Returns (take
+    int32[B, cap], ok bool[B, cap], total int32[B])."""
+    _bump_pass("compact")
+    return _sc.masked_interval_compact_batched(p, o, alive, params, cap)
 
 
 __all__ = [

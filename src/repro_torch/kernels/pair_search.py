@@ -74,7 +74,7 @@ def pair_search(table_hi: torch.Tensor, table_lo: torch.Tensor,
     _SEARCH(table_hi.data_ptr(), table_lo.data_ptr(), table_hi.stride(0),
             table_hi.shape[0], qhi.data_ptr(), qlo.data_ptr(), n,
             out.data_ptr(), build.stream(dev))
-    pair_search.launches += 1
+    build.launched(pair_search)
     return out
 
 
@@ -91,7 +91,7 @@ def pair_range(table_hi: torch.Tensor, table_lo: torch.Tensor,
     _RANGE(table_hi.data_ptr(), table_lo.data_ptr(), table_hi.stride(0),
            table_hi.shape[0], qhi.data_ptr(), qlo.data_ptr(), n,
            starts.data_ptr(), ends.data_ptr(), build.stream(dev))
-    pair_range.launches += 1
+    build.launched(pair_range)
     return starts, ends
 
 

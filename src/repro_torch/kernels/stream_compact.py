@@ -23,6 +23,13 @@ In the last two, ``p``/``o`` (and ``s``) may be strided column views of an
 zeroes the outputs and the look-back state and launches the kernel; no
 torch op follows it.
 
+Three of them have a batched form — what ``jax.vmap`` of the TPU kernel
+computes: B independent compactions of one shape and one cap, in ONE
+launch (the kernel's member axis), each output gaining a leading [B]:
+``compact_mask_batched`` (masks bool[B, n]),
+``masked_interval_compact_batched`` (one store, bounds int32[B, 4] on the
+device) and ``member_compact_batched`` (one store, sets [B, k] each).
+
 One wrapper launches the tile-local kernel (``compact_tiles``), fusing a
 predicate with a compaction per tile: ``interval_tiles``, the interval
 predicate without ``alive`` (the port of ``interval_compact_pallas``).
@@ -62,6 +69,14 @@ _MEMBER = build.Entry("stream_compact", "member_compact",
                        _L, *_OUT])
 _DUAL_MASK = build.Entry("stream_compact", "dual_compact_mask",
                          [_P, _P, _L, *_OUT])
+_COMPACT_MASK_B = build.Entry("stream_compact", "compact_mask_batched",
+                              [_P, _L, _L, _L, *_OUT])
+_MASKED_INTERVAL_B = build.Entry(
+    "stream_compact", "masked_interval_compact_batched",
+    [_P, _P, _L, _P, _P, _L, _L, *_OUT])
+_MEMBER_B = build.Entry("stream_compact", "member_compact_batched",
+                        [_P, _P, _P, _L, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+                         _I, _L, _L, *_OUT])
 _TILE_ROWS = 8192  # compact_lookback's rows per tile
 
 
@@ -96,22 +111,27 @@ def compact_mask_plain(mask: torch.Tensor, cap: int):
     return take, ok, torch.tensor(total, dtype=torch.int32, device=mask.device)
 
 
-def _lookback_outputs(dev: torch.device, streams: int, n: int, cap: int):
+def _lookback_outputs(dev: torch.device, streams: int, n: int, cap: int,
+                      members: int | None = None):
     """The outputs of one look-back launch over ``n`` rows, in one int32
-    buffer that the entry point zeroes whole: take int32[streams * cap],
-    total int32[streams], ok bool[streams * cap] (a byte per slot), then the
-    scratch (int64 words: the ticket, then each stream's tile status words).
+    buffer that the entry point zeroes whole: take int32[streams * B * cap],
+    total int32[streams * B], ok bool[streams * B * cap] (a byte per slot),
+    then the scratch (int64 words: the ticket, then each output stream's
+    tile status words).  B is ``members`` (1 when None, the solo shapes).
 
     Returns (the entry's trailing arguments but the stream, [(take, ok,
-    total)] per stream).  The views are made with ``as_strided``, the
-    cheapest view torch has: this runs once per launch.
+    total)] per stream): [cap], [cap] and 0-d solo, [B, cap], [B, cap] and
+    [B] batched.  The views are made with ``as_strided``, the cheapest view
+    torch has: this runs once per launch.
     """
-    if n >= 1 << 31 or cap < 0:
-        raise ValueError(f"the compaction takes n < 2**31 rows and cap >= 0, "
-                         f"got n={n}, cap={cap}")
-    words = 1 + streams * (n // _TILE_ROWS + 2)  # a ragged head adds a tile
-    slots = streams * cap
-    ok_at = slots + streams
+    b = 1 if members is None else members
+    if n >= 1 << 31 or cap < 0 or b < 1:
+        raise ValueError(f"the compaction takes n < 2**31 rows, cap >= 0 and "
+                         f"members >= 1, got n={n}, cap={cap}, members={b}")
+    outs = streams * b  # output streams: member j's stream st is st * b + j
+    words = 1 + outs * (n // _TILE_ROWS + 2)  # a ragged head adds a tile
+    slots = outs * cap
+    ok_at = slots + outs
     scratch_at = ok_at + -(-slots // 4)
     scratch_at += scratch_at & 1  # int64 words start 8-byte aligned
     buf = torch.empty(scratch_at + 2 * words, dtype=torch.int32, device=dev)
@@ -119,10 +139,23 @@ def _lookback_outputs(dev: torch.device, streams: int, n: int, cap: int):
     at = buf.data_ptr()
     args = (cap, at, at + 4 * ok_at, at + 4 * slots, at + 4 * scratch_at,
             words, 4 * buf.shape[0])
-    return args, [(buf.as_strided((cap,), (1,), st * cap),
-                   ok_bytes.as_strided((cap,), (1,), 4 * ok_at + st * cap),
-                   buf.as_strided((), (), slots + st))
+    if members is None:
+        return args, [(buf.as_strided((cap,), (1,), st * cap),
+                       ok_bytes.as_strided((cap,), (1,), 4 * ok_at + st * cap),
+                       buf.as_strided((), (), slots + st))
+                      for st in range(streams)]
+    return args, [(buf.as_strided((b, cap), (cap, 1), st * b * cap),
+                   ok_bytes.as_strided((b, cap), (cap, 1),
+                                       4 * ok_at + st * b * cap),
+                   buf.as_strided((b,), (1,), slots + st * b))
                   for st in range(streams)]
+
+
+def _stack_plain(outs):
+    """Per-member plain outputs [(take, ok, total)] -> one batched triple."""
+    if not outs:
+        raise ValueError("a batch needs at least one member")
+    return tuple(torch.stack(planes) for planes in zip(*outs))
 
 
 def compact_mask(mask: torch.Tensor, cap: int):
@@ -139,11 +172,40 @@ def compact_mask(mask: torch.Tensor, cap: int):
     n = mask.shape[0]
     args, (out,) = _lookback_outputs(dev, 1, n, cap)
     _COMPACT_MASK(mask.data_ptr(), n, *args, build.stream(dev))
-    compact_mask.launches += 1
+    build.launched(compact_mask)
     return out
 
 
 compact_mask.launches = 0
+
+
+def compact_mask_batched_plain(mask: torch.Tensor, cap: int):
+    """Plain version: the solo plain version per member, stacked."""
+    return _stack_plain([compact_mask_plain(m, cap) for m in mask])
+
+
+def compact_mask_batched(mask: torch.Tensor, cap: int):
+    """bool[B, n] -> (take int32[B, cap], ok bool[B, cap], total int32[B]):
+    member b's row what ``compact_mask(mask[b], cap)`` gives, in one launch.
+
+    ``mask``'s rows must each be contiguous (any alignment, any row stride).
+    """
+    if mask.device.type == "cpu":
+        return compact_mask_batched_plain(mask, cap)
+    dev = build.require_cuda(mask)
+    if (mask.dtype != torch.bool or mask.dim() != 2 or mask.shape[0] < 1
+            or (mask.shape[1] > 1 and mask.stride(1) != 1)):
+        raise ValueError("compact_mask_batched takes a bool[B, n] mask, "
+                         "B >= 1, with contiguous rows")
+    members, n = mask.shape
+    args, (out,) = _lookback_outputs(dev, 1, n, cap, members)
+    _COMPACT_MASK_B(mask.data_ptr(), members, n, mask.stride(0), *args,
+                    build.stream(dev))
+    build.launched(compact_mask_batched)
+    return out
+
+
+compact_mask_batched.launches = 0
 
 
 def _check_alive(alive: torch.Tensor, n: int) -> None:
@@ -180,11 +242,49 @@ def masked_interval_compact(p: torch.Tensor, o: torch.Tensor,
     args, (out,) = _lookback_outputs(dev, 1, n, cap)
     _MASKED_INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), alive.data_ptr(),
                      *params, n, *args, build.stream(dev))
-    masked_interval_compact.launches += 1
+    build.launched(masked_interval_compact)
     return out
 
 
 masked_interval_compact.launches = 0
+
+
+def masked_interval_compact_batched_plain(p, o, alive, params, cap: int):
+    """Plain version: the solo plain version per member's bounds, stacked."""
+    return _stack_plain([masked_interval_compact_plain(p, o, alive, prm, cap)
+                         for prm in params.tolist()])
+
+
+def masked_interval_compact_batched(p: torch.Tensor, o: torch.Tensor,
+                                    alive: torch.Tensor, params: torch.Tensor,
+                                    cap: int):
+    """The fused scan for B members over one store in one launch ->
+    (take int32[B, cap], ok bool[B, cap], total int32[B]).
+
+    ``p``/``o``/``alive`` as ``masked_interval_compact`` takes them, shared;
+    ``params``: int32[B, 4] (plo, phi, olo, ohi per member) on the store's
+    device, read there by each member's CTAs (no host copy).
+    """
+    if p.device.type == "cpu":
+        return masked_interval_compact_batched_plain(p, o, alive, params, cap)
+    dev = build.require_cuda(p, o, alive, params)
+    check_columns(p, o)
+    n = p.shape[0]
+    _check_alive(alive, n)
+    if (params.dtype != torch.int32 or params.dim() != 2
+            or params.shape[1] != 4 or params.shape[0] < 1):
+        raise ValueError("params must be int32[B, 4], B >= 1")
+    if not params.is_contiguous() or params.data_ptr() % 16:
+        params = params.clone()  # the kernel reads each row as one int4
+    args, (out,) = _lookback_outputs(dev, 1, n, cap, params.shape[0])
+    _MASKED_INTERVAL_B(p.data_ptr(), o.data_ptr(), p.stride(0),
+                       alive.data_ptr(), params.data_ptr(), params.shape[0], n,
+                       *args, build.stream(dev))
+    build.launched(masked_interval_compact_batched)
+    return out
+
+
+masked_interval_compact_batched.launches = 0
 
 
 def _check_block(block: int) -> None:
@@ -215,7 +315,7 @@ def interval_tiles(p: torch.Tensor, o: torch.Tensor, params, block: int):
     counts = torch.empty(nb, dtype=torch.int32, device=dev)
     _INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n, block, nb,
               local.data_ptr(), counts.data_ptr(), build.stream(dev))
-    interval_tiles.launches += 1
+    build.launched(interval_tiles)
     return local, counts
 
 
@@ -269,6 +369,21 @@ def member_compact_plain(s, p, o, alive, tid: int, mem, dom, rng,
     return out
 
 
+def _check_member_args(s, p, o, alive, sets, set_dim: int) -> None:
+    n = s.shape[0]
+    if not (s.dtype == p.dtype == o.dtype == torch.int32 and s.dim() == 1
+            and s.shape == p.shape == o.shape
+            and s.stride() == p.stride() == o.stride()):
+        raise ValueError("s, p and o must be int32[n] views with one stride")
+    _check_alive(alive, n)
+    for ids in sets:
+        k = ids.shape[-1]
+        if (ids.dtype != torch.int32 or ids.dim() != set_dim
+                or not ids.is_contiguous() or k == 0 or k & (k - 1)):
+            raise ValueError("member sets must be contiguous int32 of a "
+                             "power-of-two length")
+
+
 def member_compact(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
                    alive: torch.Tensor, tid: int, mem: torch.Tensor,
                    dom: torch.Tensor, rng: torch.Tensor, has_dom: bool,
@@ -287,27 +402,61 @@ def member_compact(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
                                     has_dom, has_rng, cap)
     dev = build.require_cuda(s, p, o, alive, mem, dom, rng)
     n = s.shape[0]
-    if not (s.dtype == p.dtype == o.dtype == torch.int32 and s.dim() == 1
-            and s.shape == p.shape == o.shape
-            and s.stride() == p.stride() == o.stride()):
-        raise ValueError("s, p and o must be int32[n] views with one stride")
-    _check_alive(alive, n)
-    for ids in (mem, dom, rng):
-        k = ids.shape[0]
-        if (ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous()
-                or k == 0 or k & (k - 1)):
-            raise ValueError("member sets must be contiguous int32 of a "
-                             "power-of-two length")
+    _check_member_args(s, p, o, alive, (mem, dom, rng), 1)
     args, outs = _lookback_outputs(dev, 2 if has_rng else 1, n, cap)
     _MEMBER(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
             alive.data_ptr(), tid, mem.data_ptr(), mem.shape[0],
             dom.data_ptr(), dom.shape[0], rng.data_ptr(), rng.shape[0],
             int(has_dom), int(has_rng), n, *args, build.stream(dev))
-    member_compact.launches += 1
+    build.launched(member_compact)
     return outs
 
 
 member_compact.launches = 0
+
+
+def member_compact_batched_plain(s, p, o, alive, tid: int, mem, dom, rng,
+                                 has_dom: bool, has_rng: bool, cap: int):
+    """Plain version: the solo plain version per member's sets, stacked."""
+    per = [member_compact_plain(s, p, o, alive, tid, mem[b], dom[b], rng[b],
+                                has_dom, has_rng, cap)
+           for b in range(mem.shape[0])]
+    return [_stack_plain([m[st] for m in per]) for st in range(len(per[0]))]
+
+
+def member_compact_batched(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
+                           alive: torch.Tensor, tid: int, mem: torch.Tensor,
+                           dom: torch.Tensor, rng: torch.Tensor, has_dom: bool,
+                           has_rng: bool, cap: int):
+    """The rewrite type pattern for B members over one store in one launch.
+
+    ``s``/``p``/``o``/``alive``/``tid`` as ``member_compact`` takes them,
+    shared; ``mem``/``dom``/``rng``: int32[B, k] (one sorted INT32_MAX-padded
+    set per member, k a power of two per set).  Returns the streams of
+    ``member_compact``, each (take int32[B, cap], ok bool[B, cap], total
+    int32[B]).
+    """
+    tid = int(tid)
+    if s.device.type == "cpu":
+        return member_compact_batched_plain(s, p, o, alive, tid, mem, dom,
+                                            rng, has_dom, has_rng, cap)
+    dev = build.require_cuda(s, p, o, alive, mem, dom, rng)
+    n = s.shape[0]
+    _check_member_args(s, p, o, alive, (mem, dom, rng), 2)
+    members = mem.shape[0]
+    if members < 1 or dom.shape[0] != members or rng.shape[0] != members:
+        raise ValueError("mem, dom and rng must hold one set per member")
+    args, outs = _lookback_outputs(dev, 2 if has_rng else 1, n, cap, members)
+    _MEMBER_B(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
+              alive.data_ptr(), tid, mem.data_ptr(), mem.shape[1],
+              dom.data_ptr(), dom.shape[1], rng.data_ptr(), rng.shape[1],
+              int(has_dom), int(has_rng), members, n, *args,
+              build.stream(dev))
+    build.launched(member_compact_batched)
+    return outs
+
+
+member_compact_batched.launches = 0
 
 
 def dual_compact_tiles_plain(mask_a, mask_b, block: int):
@@ -339,7 +488,7 @@ def dual_compact(mask_a: torch.Tensor, mask_b: torch.Tensor, cap: int):
     args, outs = _lookback_outputs(dev, 2, n, cap)
     _DUAL_MASK(mask_a.data_ptr(), mask_b.data_ptr(), n, *args,
                build.stream(dev))
-    dual_compact.launches += 1
+    build.launched(dual_compact)
     return outs
 
 

@@ -44,3 +44,129 @@ def closure_expand_edges(device, seed: int = 0):
             for n in CLOSURE_N:
                 for off in range(4):
                     yield pool_d[off:off + n], ids_d, anc_d
+
+
+BATCH_B = (1, 2, 3, 16)  # members of one batched launch
+BATCH_N = (0, 1, 8191, 8192, 8193, (1 << 21) + 3)  # rows; 8,192 a tile
+BATCH_KINDS = ("all-false", "all-true", "differing")
+_I32_MIN, _I32_MAX = -2**31, 2**31 - 1
+
+
+def _caps(n: int):
+    return sorted({0, 1, n, n + 5})
+
+
+def compact_mask_batched_edges(device, seed: int = 0):
+    """``(mask, cap)`` for ``compact_mask_batched``: every B of ``BATCH_B``,
+    n of ``BATCH_N``, cap of {0, 1, n, n + 5}, members all false, all true,
+    and differing (member b set with probability (b + 1) / (B + 1)); the
+    differing masks are rows of a wider buffer, 3 bytes off 16-byte
+    alignment with a row stride of n + 35, so members sit at different
+    offsets from 16 bytes."""
+    g = torch.Generator().manual_seed(seed)
+    for b in BATCH_B:
+        for n in BATCH_N:
+            prob = (torch.arange(b) + 1.0)[:, None] / (b + 1)
+            wide = torch.rand((b, n + 35), generator=g) < prob
+            masks = {"all-false": torch.zeros((b, n), dtype=torch.bool),
+                     "all-true": torch.ones((b, n), dtype=torch.bool)}
+            masks = {k: v.to(device) for k, v in masks.items()}
+            masks["differing"] = wide.to(device)[:, 3:n + 3]
+            for kind in BATCH_KINDS:
+                for cap in _caps(n):
+                    yield masks[kind], cap
+
+
+def _interval_params(kind: str, b: int, g):
+    """Per-member (plo, phi, olo, ohi): none, all or differing rows match;
+    differing mixes ordinary, inverted, empty and full-range bounds."""
+    if kind == "all-false":  # inverted and empty bounds
+        rows = [(40, 10, 0, 64) if i % 2 else (7, 7, 0, 64) for i in range(b)]
+    elif kind == "all-true":
+        rows = [(_I32_MIN, _I32_MAX, _I32_MIN, _I32_MAX)] * b
+    else:
+        rows = []
+        for i in range(b):
+            lo, hi = sorted(torch.randint(0, 65, (2,), generator=g).tolist())
+            rows.append([(lo, hi, 0, 48), (50, 10, 0, 64), (9, 9, 0, 64),
+                         (_I32_MIN, _I32_MAX, _I32_MIN, _I32_MAX)][i % 4])
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def masked_interval_batched_edges(device, seed: int = 0):
+    """``(p, o, alive, params, cap)`` for
+    ``masked_interval_compact_batched``: p and o strided columns of one
+    [n, 3] store of small ids, alive partly false (all true for the
+    all-true members), params int32[B, 4] from ``_interval_params``, at
+    every B, n and cap of the batched edges."""
+    g = torch.Generator().manual_seed(seed)
+    nmax = max(BATCH_N)
+    rows = torch.randint(0, 64, (nmax, 3), generator=g,
+                         dtype=torch.int32).to(device)
+    alive_part = (torch.rand(nmax, generator=g) < 0.9).to(device)
+    alive_all = torch.ones(nmax, dtype=torch.bool, device=device)
+    for b in BATCH_B:
+        for n in BATCH_N:
+            for kind in BATCH_KINDS:
+                params = _interval_params(kind, b, g).to(device)
+                alive = (alive_all if kind == "all-true" else alive_part)[:n]
+                for cap in _caps(n):
+                    yield rows[:n, 1], rows[:n, 2], alive, params, cap
+
+
+def _member_sets(kind: str, b: int, g, big: bool):
+    """Per-member (mem [B, 8 or 4,096], dom [B, 16], rng [B, 16]) sets of a
+    store whose p lies in [0, 16) and o in [0, 64): all padding, every p
+    in dom and rng (every row hits), or random per member (mem of 4,096
+    slots, past the 2,048 a CTA stages, when ``big``)."""
+    mk = 4096 if big else 8
+
+    def padded(ids, cap):
+        out = torch.full((cap,), _I32_MAX, dtype=torch.int32)
+        ids = torch.unique(torch.as_tensor(ids, dtype=torch.int32))[:cap]
+        out[: ids.shape[0]] = ids
+        return out
+
+    def rand(hi, most):
+        k = int(torch.randint(0, most + 1, (1,), generator=g))
+        return torch.randint(0, hi, (k,), generator=g)
+
+    if kind == "all-false":
+        sets = [([], [], [])] * b
+    elif kind == "all-true":
+        sets = [(range(0, 64, 9), range(16), range(16))] * b
+    else:
+        sets = [(rand(1 << 20 if big else 64, mk), rand(16, 4), rand(16, 2))
+                for _ in range(b)]
+    return [torch.stack([padded(s[i], cap) for s in sets])
+            for i, cap in enumerate((mk, 16, 16))]
+
+
+def member_batched_edges(device, seed: int = 0):
+    """``(s, p, o, alive, tid, mem, dom, rng, has_dom, has_rng, cap)`` for
+    ``member_compact_batched``: one [n, 3] store (p in [0, 16), o in
+    [0, 64), every 97th subject INVALID, alive partly false), tid 3, sets
+    from ``_member_sets``; every has_dom/has_rng pair below 8,194 rows,
+    both branches past it; members of 4,096-slot mem sets (searched in
+    device memory, per member) at B of 3."""
+    g = torch.Generator().manual_seed(seed)
+    nmax = max(BATCH_N)
+    rows = torch.stack([torch.randint(0, 1 << 20, (nmax,), generator=g),
+                        torch.randint(0, 16, (nmax,), generator=g),
+                        torch.randint(0, 64, (nmax,), generator=g)],
+                       1).to(torch.int32)
+    rows[::97, 0] = _I32_MAX
+    rows = rows.to(device)
+    alive = (torch.rand(nmax, generator=g) < 0.9).to(device)
+    for b in BATCH_B:
+        for n in BATCH_N:
+            flags = ((True, True),) if n > 8193 else (
+                (False, False), (True, False), (False, True), (True, True))
+            for kind in BATCH_KINDS:
+                big = kind == "differing" and b == 3
+                mem, dom, rng = (t.to(device)
+                                 for t in _member_sets(kind, b, g, big))
+                for hd, hr in flags:
+                    for cap in _caps(n):
+                        yield (rows[:n, 0], rows[:n, 1], rows[:n, 2],
+                               alive[:n], 3, mem, dom, rng, hd, hr, cap)

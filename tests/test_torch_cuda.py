@@ -17,7 +17,11 @@ from repro_torch.kernels import merge_sorted as t_ms
 from repro_torch.kernels import msc_select as t_msc
 from repro_torch.kernels import pair_search as t_ps
 from repro_torch.kernels import stream_compact as t_sc
-from repro_torch.testing.kernel_edges import closure_expand_edges
+from repro_torch.kernels import ops as t_ops
+from repro_torch.testing.kernel_edges import (
+    closure_expand_edges, compact_mask_batched_edges,
+    masked_interval_batched_edges, member_batched_edges,
+)
 
 
 @pytest.mark.cuda
@@ -285,3 +289,64 @@ def test_cuda_compact_mask_and_pair_range_edges():
         args = (rows[:T, 1], rows[:T, 0], qh, ql)
         same(t_ps.pair_range(*args), t_ps.pair_range_plain(*args))
         same([t_ps.pair_search(*args)], [t_ps.pair_search_plain(*args)])
+
+
+def _dev_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_batched_compactions_match_plain():
+    """The batched look-back compactions (K1, K2, K4 with a member axis)
+    equal their plain versions (the solo plain version per member), bit for
+    bit, at the shared edges of ``kernel_edges``: B = 1, 2, 3, 16; n = 0, 1,
+    8,191, 8,192, 8,193, 2**21 + 3; cap = 0, 1, n, n + 5; members all false,
+    all true and differing (masks off 16 bytes, K2 bounds inverted, empty
+    and full-range, alive partly false, K4 sets past the staged 2,048)."""
+    dev = _dev_or_skip()
+    for mask, cap in compact_mask_batched_edges(dev):
+        _same(t_sc.compact_mask_batched(mask, cap),
+              t_sc.compact_mask_batched_plain(mask, cap))
+    for args in masked_interval_batched_edges(dev):
+        _same(t_sc.masked_interval_compact_batched(*args),
+              t_sc.masked_interval_compact_batched_plain(*args))
+    for args in member_batched_edges(dev):
+        _same(_flat(t_sc.member_compact_batched(*args)),
+              _flat(t_sc.member_compact_batched_plain(*args)))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_ops_are_one_launch():
+    """Each batched ``ops`` entry is one launch of its batched wrapper and
+    bumps one pass, whatever B (needs a card)."""
+    dev = _dev_or_skip()
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randint(0, 64, (50_000, 3), generator=g,
+                         dtype=torch.int32).to(dev)
+    alive = torch.ones(50_000, dtype=torch.bool, device=dev)
+    mask = (torch.rand((16, 50_000), generator=g) < 0.5).to(dev)
+    params = torch.tensor([[0, 32, 0, 64]] * 16, dtype=torch.int32,
+                          device=dev)
+    sets = torch.full((16, 8), 2**31 - 1, dtype=torch.int32, device=dev)
+    sets[:, 0] = torch.arange(16, dtype=torch.int32, device=dev)
+    calls = (
+        (lambda: t_ops.compact_indices_batched(mask, 4096),
+         t_sc.compact_mask_batched, "compact"),
+        (lambda: t_ops.masked_interval_compact_batched(
+            rows[:, 1], rows[:, 2], alive, params, 4096),
+         t_sc.masked_interval_compact_batched, "compact"),
+        (lambda: t_ops.rewrite_member_compact_batched(
+            rows, alive, 3, sets, sets, sets, 4096, True, True),
+         t_sc.member_compact_batched, "member_compact"),
+    )
+    for call, wrapper, kind in calls:
+        t_ops.reset_pass_counters()
+        before = wrapper.launches
+        out = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches - before == 1
+        assert t_ops.pass_counters[kind] == 1
+        assert sum(t_ops.pass_counters.values()) == 1
+        assert out[0].shape == (16, 4096)
