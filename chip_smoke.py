@@ -65,9 +65,13 @@ line:
                 for K1–K4 and K7 the ``kernels.ops``-level call (``ops_ms``;
                 K1's, K2's, K4's and K7's must be one launch and, in the
                 profiler, one kernel beside its memset); the batched K1, K2
-                and K4 (one launch for a group's members) at the serving
-                phase's shapes beside the same members as solo calls, and
-                on the batched edges of ``testing/kernel_edges.py``; then
+                and K4 (one launch for a group's members; K2 and K4 run
+                ``compact_lookback_group``, whose ``ptxas`` lines the rows
+                carry, and their rows give ``store_reads``: the CTAs the
+                launch ran, read back from its ticket, over its tiles) at
+                the serving phase's shapes, K2 also at 16 members (nested
+                in its row), beside the same members as solo calls, and on
+                the batched edges of ``testing/kernel_edges.py``; then
                 the ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–8 and read just after it (a
@@ -277,6 +281,32 @@ def phase_build():
             for name, log in build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(build.SOURCES), "ptxas": regs})
+
+
+def ptxas_lines(log: str, *keys: str) -> dict:
+    """``nvcc -Xptxas -v``'s lines on registers and spills
+    (``build.BUILD_LOG``) of each kernel whose mangled name holds every one
+    of ``keys``: {name: [lines]}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            if all(k in name for k in keys):
+                out[name] = []
+            else:
+                name = None
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.strip())
+    return out
+
+
+def _store_reads(take, streams: int, n: int) -> float:
+    """The reads of the store that the batched K2 or K4 launch which wrote
+    ``take`` made: the CTAs it ran (its ticket, read back) over its tiles
+    of 8,192 rows, each CTA reading one tile's rows once."""
+    from repro_torch.kernels import stream_compact as sc
+
+    return sc.launched_ctas(take, streams) / max(1, -(-n // 8192))
 
 
 def _counters():
@@ -854,6 +884,11 @@ def phase_lubm100_kernel_api(kb):
 
 SERVING_CLASSES_Q4 = ["Chair", "Dean", "FullProfessor", "AssociateProfessor",
                       "AssistantProfessor", "Lecturer"]
+# launch/serve.py's ten classes and six more of the LUBM TBox: a batch of
+# the runtime's max_batch (16) ``(?x rdf:type C)`` requests
+SERVING_CLASSES_16 = ["FullProfessor", "AssociateProfessor",
+                      "AssistantProfessor", "Lecturer",
+                      "UndergraduateStudent", "University"]
 
 
 def serving_families():
@@ -1160,27 +1195,32 @@ def _largest_group(eng, qs):
     return max(groups.values(), key=len)
 
 
-def _batched_args(kb):
-    """The batched K1, K2 and K4 calls at the serving phase's shapes: the
-    ``(?x rdf:type C)`` family's DISTINCT keep masks (litemat, indexed: each
-    member's answers set), its fused scan over the lite store (litemat
-    scan: each member's bounds) and its largest rewrite group's member sets
-    over the raw store, each at the caps ``_batch_caps`` gives the group."""
+def _batched_args(kb, classes=None, keys=("k1", "k2", "k4")):
+    """The batched K1, K2 and K4 calls (``keys``) at the serving phase's
+    shapes: the ``(?x rdf:type C)`` family's DISTINCT keep masks (litemat,
+    indexed: each member's answers set), its fused scan over the lite store
+    (litemat scan: each member's bounds) and its largest rewrite group's
+    member sets over the raw store, each at the caps ``_batch_caps`` gives
+    the group; the family over ``classes`` (default: launch/serve.py's)."""
     import torch
-    from repro_torch.core.query import QueryEngine, _stack_dyn
+    from repro_torch.core.query import Pattern, QueryEngine, _stack_dyn
 
-    qs = serving_families()["type"]
+    qs = serving_families()["type"] if classes is None else [
+        [Pattern("?x", "rdf:type", c)] for c in classes]
     dev = kb.device
     out = {}
-    eng = QueryEngine(kb=kb.kb, spo=kb.lite_spo, mode="litemat", dtb=kb.dtb,
-                      view=kb.view("litemat"))
-    plans = _largest_group(eng, qs)
-    caps, join_cap = eng._batch_caps(plans)
-    counts = torch.tensor([eng._run_planned(pl)[0].shape[0] for pl in plans],
-                          device=dev)
-    out["k1"] = (torch.arange(caps[0], device=dev)[None, :] < counts[:, None],
-                 join_cap)
+    if "k1" in keys:
+        eng = QueryEngine(kb=kb.kb, spo=kb.lite_spo, mode="litemat",
+                          dtb=kb.dtb, view=kb.view("litemat"))
+        plans = _largest_group(eng, qs)
+        caps, join_cap = eng._batch_caps(plans)
+        counts = torch.tensor([eng._run_planned(pl)[0].shape[0]
+                               for pl in plans], device=dev)
+        out["k1"] = (torch.arange(caps[0], device=dev)[None, :]
+                     < counts[:, None], join_cap)
     for mode, key in (("litemat", "k2"), ("rewrite", "k4")):
+        if key not in keys:
+            continue
         eng = QueryEngine(kb=kb.kb, spo=kb._base_store(mode), mode=mode,
                           dtb=kb.dtb, view=kb.view(mode),
                           use_index=mode == "rewrite")
@@ -1205,6 +1245,7 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     from repro_torch.core.engine import PAPER_QUERIES
     from repro_torch.core.index import key_cols, pow2_bucket
     from repro_torch.core.query import QueryEngine, _inl_ranges
+    from repro_torch.kernels import build
     from repro_torch.kernels import closure_expand as ce
     from repro_torch.kernels import interval_filter as itf
     from repro_torch.kernels import merge_sorted as ms
@@ -1648,6 +1689,7 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
 
     # -- the batched compactions (K1, K2, K4 with a member axis) at the
     # serving phase's shapes, beside the same members as solo calls --
+    from repro_torch.launch.serve import CLASSES
     from repro_torch.testing.kernel_edges import (
         compact_mask_batched_edges, masked_interval_batched_edges,
         member_batched_edges)
@@ -1674,40 +1716,61 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         lambda: ops.compact_indices_batched(keep_b, cap_b),
         "compact_mask_batched", "compact")
 
-    p2, o2, a2, prm2, cap2 = bk["k2"]
-    nb2, n2 = prm2.shape[0], p2.shape[0]
-    k2b = (p2, o2, a2, prm2, cap2)
-    err = _exact("masked_interval_compact_batched",
-                 sc.masked_interval_compact_batched(*k2b),
-                 sc.masked_interval_compact_batched_plain(*k2b))
-    prm_h = prm2.tolist()
-    rows.append(_row(
-        "masked_interval_compact_batched", src + "stream_compact.cu",
-        ref + "stream_compact.py:250",
-        launches["masked_interval_compact_batched"], err,
-        lambda: sc.masked_interval_compact_batched(*k2b),
-        lambda: sc.masked_interval_compact_batched_plain(*k2b), None,
-        13 * n2 + 16 * nb2 + nb2 * (5 * cap2 + 4),
-        ops=lambda: ops.masked_interval_compact_batched(*k2b)))
-    rows[-1].update(
-        under_vmap=True, members=nb2, rows=n2, cap=cap2,
-        store_reads_bound_ms=nb2 * 13 * n2 / HBM_BYTES_PER_S * 1e3,
-        solo_calls_event_ms=event_ms(
-            lambda: [sc.masked_interval_compact(p2, o2, a2, b, cap2)
-                     for b in prm_h]))
-    rows[-1]["ops_device_split"] = _one_launch(
-        "masked_interval_compact_batched",
-        lambda: ops.masked_interval_compact_batched(*k2b),
-        "masked_interval_compact_batched", "compact")
+    group_log = build.BUILD_LOG.get("stream_compact", "")
+    # K2 at the family's ten members, and at the runtime's max_batch (16),
+    # nested in its row (the same kernel: its launches are the row's)
+    k2_16 = _batched_args(kb100, CLASSES + SERVING_CLASSES_16, ("k2",))["k2"]
+    require(k2_16[3].shape[0] == 16, "the 16 classes formed no one group")
+    for name, k2b in (("masked_interval_compact_batched", bk["k2"]),
+                      ("masked_interval_compact_batched at 16 members",
+                       k2_16)):
+        p2, o2, a2, prm2, cap2 = k2b
+        nb2, n2 = prm2.shape[0], p2.shape[0]
+        got = sc.masked_interval_compact_batched(*k2b)
+        reads = _store_reads(got[0], 1, n2)
+        require(reads == -(-nb2 // 16),
+                f"{name}: {nb2} members read the store {reads} times")
+        err = _exact(name, got, sc.masked_interval_compact_batched_plain(*k2b))
+        prm_h = prm2.tolist()
+        row = _row(
+            name, src + "stream_compact.cu", ref + "stream_compact.py:250",
+            launches["masked_interval_compact_batched"], err,
+            lambda a=k2b: sc.masked_interval_compact_batched(*a),
+            lambda a=k2b: sc.masked_interval_compact_batched_plain(*a), None,
+            13 * n2 + 16 * nb2 + nb2 * (5 * cap2 + 4),
+            ops=lambda a=k2b: ops.masked_interval_compact_batched(*a))
+        row.update(
+            under_vmap=True, members=nb2, rows=n2, cap=cap2,
+            store_reads=reads,
+            ptxas=ptxas_lines(group_log, "compact_lookback_group",
+                              "IntervalGroup"),
+            solo_calls_event_ms=event_ms(
+                lambda a=k2b, ph=prm_h: [sc.masked_interval_compact(
+                    *a[:3], b, a[4]) for b in ph]))
+        row["ops_device_split"] = _one_launch(
+            name, lambda a=k2b: ops.masked_interval_compact_batched(*a),
+            "masked_interval_compact_batched", "compact",
+            kernel="compact_lookback_group")
+        if nb2 == 16:
+            for k in ("route", "source", "replaces", "launches", "ptxas"):
+                del row[k]
+            rows[-1]["at_16_members"] = row
+        else:
+            rows.append(row)
+    del k2_16
 
     spo4, a4, tid4, mem4, dom4, rng4, cap4, hd4, hr4 = bk["k4"]
     nb4, n4 = mem4.shape[0], spo4.shape[0]
     k4b = (spo4[:, 0], spo4[:, 1], spo4[:, 2], a4, tid4, mem4, dom4, rng4,
            hd4, hr4, cap4)
-    err = _exact("member_compact_batched",
-                 flat(sc.member_compact_batched(*k4b)),
-                 flat(sc.member_compact_batched_plain(*k4b)))
+    got = sc.member_compact_batched(*k4b)
     streams4 = 2 if hr4 else 1
+    reads4 = _store_reads(got[0][0], streams4, n4)
+    require(reads4 == -(-nb4 // 16),
+            f"member_compact_batched: {nb4} members read the store {reads4} "
+            "times")
+    err = _exact("member_compact_batched", flat(got),
+                 flat(sc.member_compact_batched_plain(*k4b)))
     set_bytes4 = 4 * (mem4.numel() + (dom4.numel() if hd4 else 0)
                       + (rng4.numel() if hr4 else 0))
     k4_ops = (lambda: ops.rewrite_member_compact_batched(
@@ -1721,18 +1784,21 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         13 * n4 + set_bytes4 + streams4 * nb4 * (5 * cap4 + 4), ops=k4_ops))
     rows[-1].update(
         under_vmap=True, members=nb4, rows=n4, cap=cap4, streams=streams4,
-        store_reads_bound_ms=nb4 * 13 * n4 / HBM_BYTES_PER_S * 1e3,
+        store_reads=reads4,
+        ptxas=ptxas_lines(group_log, "compact_lookback_group", "MemberGroup"),
         solo_calls_event_ms=event_ms(
             lambda: [sc.member_compact(*k4b[:5], mem4[b], dom4[b], rng4[b],
                                        hd4, hr4, cap4) for b in range(nb4)]))
     rows[-1]["ops_device_split"] = _one_launch(
         "rewrite_member_compact_batched", k4_ops, "member_compact_batched",
-        "member_compact")
+        "member_compact", kernel="compact_lookback_group")
     del bk, keep_b
-    # batched edges (kernel_edges): B = 1, 2, 3, 16; n = 0, 1, 8,191, 8,192,
-    # 8,193, 2**21 + 3; cap = 0, 1, n, n + 5; members all false, all true,
-    # differing; masks off 16 bytes; K2 bounds inverted, empty, full-range,
-    # alive partly false; K4 sets past the staged 2,048
+    # batched edges (kernel_edges): B = 1, 2, 3 and the group boundaries
+    # 15, 16, 17, 33; n = 0, 1, 8,191, 8,192, 8,193, 2**21 + 3; cap = 0, 1,
+    # n, n + 5; members all false, all true, differing; masks off 16 bytes;
+    # K2 bounds differing in every field, inverted, empty, full-range,
+    # alive partly false; K4 sets past the staged 2,048, and groups whose
+    # sets exceed the staging budget (some members' staged, some not)
     batched_edges = 0
     for m_e, c_e in compact_mask_batched_edges(dev):
         _exact("compact_mask_batched edge", sc.compact_mask_batched(m_e, c_e),

@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
 """Time the single-pass compactions (K1, K2, K4, and K7 through its
-``ops`` entry point) and the kernel-API kernels K10 and K11 at LUBM-100's
-shapes on one GPU, beside two yardsticks of the card's streaming rate over
-the same store: a copy of the lite store and the interval filter (K9),
-which read the same rows and keep nothing.  K11 is also timed on a
-synthetic table past its staging limit (``k11_large_c``: 213,000 sorted
-ids, D = 8, LUBM-100's query count, half of the queries hits).
+``ops`` entry point), the batched K2 and K4 (the serving phase's
+``(?x rdf:type C)`` family: K2 over ten and sixteen members, K4 over its
+largest rewrite group, and the same sets without the domain and range
+branches; the cost per member from K2 over its first one and four members
+and K4 over one, and each with cap 0, no writes) and the
+kernel-API kernels K10 and K11 at
+LUBM-100's shapes on one GPU, beside two yardsticks of the card's
+streaming rate over the same store: a copy of the lite store and the
+interval filter (K9), which read the same rows and keep nothing.  K11 is
+also timed on a synthetic table past its staging limit (``k11_large_c``:
+213,000 sorted ids, D = 8, LUBM-100's query count, half of the queries
+hits).  Last, a ``ptxas`` line: the look-back compactions' registers and
+spills (``chip_smoke.ptxas_lines``).
 
     python3 scripts/bench_compaction.py [SRC]
 
@@ -13,7 +20,8 @@ ids, D = 8, LUBM-100's query count, half of the queries hits).
 ``repro_torch`` from, so a copy of the tree with a changed kernel can be
 timed against this one on the same card, one process each; K7, K10 and
 K11 are timed through calls every tree since K7's port has
-(``ops.dual_compact_indices``, ``msc_select``, ``closure_expand``).
+(``ops.dual_compact_indices``, ``msc_select``, ``closure_expand``), the
+batched K2 and K4 through their wrappers (every tree since they came).
 Prints one ``name {json}`` line per measurement: ``ms`` (CUDA events per
 call, back to back), ``event_ms`` (CUDA events around calls enqueued
 behind a sleep kernel: the device time alone), ``split`` (profiler device
@@ -42,11 +50,13 @@ def main() -> int:
     from repro_torch.core.index import pow2_bucket
     from repro_torch.core.materialize import INVALID, candidate_types
     from repro_torch.core.query import QueryEngine
+    from repro_torch.kernels import build
     from repro_torch.kernels import closure_expand as ce
     from repro_torch.kernels import interval_filter as itf
     from repro_torch.kernels import msc_select as msc
     from repro_torch.kernels import ops
     from repro_torch.kernels import stream_compact as sc
+    from repro_torch.launch.serve import CLASSES
     from repro_torch.rdf.generator import generate_lubm
 
     print(cs.subprocess.run(
@@ -138,6 +148,52 @@ def main() -> int:
         timed(name, lambda a=a, b=b, c=c: ops.dual_compact_indices(a, b, c),
               totals=[int(got[2]), int(got[5])], cap=c)
 
+    # the batched K2 and K4: the (?x rdf:type C) family's fused scan over
+    # the lite store at ten members (launch/serve.py's classes) and sixteen
+    # (the runtime's max_batch), and its largest rewrite group (two
+    # members, both streams) over the raw store
+    bk = cs._batched_args(kb, keys=("k2", "k4"))
+    bk["k2_16"] = cs._batched_args(kb, CLASSES + cs.SERVING_CLASSES_16,
+                                   ("k2",))["k2"]
+    for name, key in (("k2_batched", "k2"), ("k2_batched_16", "k2_16")):
+        a = bk[key]
+        got = sc.masked_interval_compact_batched(*a)
+        cs._exact(name, got, sc.masked_interval_compact_batched_plain(*a))
+        timed(name, lambda a=a: sc.masked_interval_compact_batched(*a),
+              members=int(a[3].shape[0]), totals=got[2].tolist(), cap=a[4])
+    # K2's cost per member: the first 1 and 4 members, and the ten with no
+    # writes (cap 0, outputs are totals only)
+    p2, o2, a2, prm2, cap2 = bk["k2"]
+    for name, prm, c in (("k2_batched_b1", prm2[:1], cap2),
+                         ("k2_batched_b4", prm2[:4], cap2),
+                         ("k2_batched_cap0", prm2, 0)):
+        prm = prm.contiguous()
+        timed(name, lambda prm=prm, c=c: sc.masked_interval_compact_batched(
+            p2, o2, a2, prm, c), members=int(prm.shape[0]), cap=c)
+    spo4, a4, tid4, mem4, dom4, rng4, cap4, hd4, hr4 = bk["k4"]
+    k4b = (spo4[:, 0], spo4[:, 1], spo4[:, 2], a4, tid4, mem4, dom4, rng4,
+           hd4, hr4, cap4)
+    got = sc.member_compact_batched(*k4b)
+    cs._exact("k4_batched", [t for x in got for t in x],
+              [t for x in sc.member_compact_batched_plain(*k4b) for t in x])
+    timed("k4_batched", lambda: sc.member_compact_batched(*k4b),
+          members=int(mem4.shape[0]), streams=len(got),
+          totals=[x[2].tolist() for x in got], cap=cap4)
+    # the rewrite type pattern with no domain or range sets
+    # (MemberGroup<false, false>)
+    k4n = (*k4b[:8], False, False, cap4)
+    got = sc.member_compact_batched(*k4n)
+    cs._exact("k4_batched_no_branches", [t for x in got for t in x],
+              [t for x in sc.member_compact_batched_plain(*k4n) for t in x])
+    timed("k4_batched_no_branches", lambda: sc.member_compact_batched(*k4n),
+          members=int(mem4.shape[0]), cap=cap4, totals=got[0][2].tolist())
+    timed("k4_batched_b1", lambda: sc.member_compact_batched(
+        *k4b[:5], mem4[:1], dom4[:1], rng4[:1], *k4b[8:]), members=1,
+        cap=cap4)
+    timed("k4_batched_cap0", lambda: sc.member_compact_batched(
+        *k4b[:-1], 0), members=int(mem4.shape[0]), cap=0)
+    del bk
+
     # K10 on the candidate types grouped by instance; K11 on the candidate
     # types' concepts (phase lubm100_kernel_api's inputs)
     inst, conc, _ = candidate_types(raw, kb.dtb)
@@ -172,6 +228,9 @@ def main() -> int:
           hits=int(torch.isin(big_q, big_ids).sum()))
     for name, v in out.items():
         print(name, json.dumps(v), flush=True)
+    print("ptxas", json.dumps(cs.ptxas_lines(
+        build.BUILD_LOG.get("stream_compact", ""), "compact_lookback")),
+          flush=True)
     return 0
 
 

@@ -17,16 +17,19 @@
 //                                      tid && o in mem) || p in dom and, if
 //                                      has_rng, the object stream p in rng,
 //                                      each && alive && s != INVALID)
-//    The first, third and fourth also run with a member axis — what
-//    jax.vmap of the TPU kernel computes: B compactions of one shape and
-//    one cap in one launch, one CTA per (member, tile), each member with
-//    its own look-back state (compact_mask_batched: B masks;
-//    masked_interval_compact_batched: one store, B bounds read from device
-//    memory; member_compact_batched: one store, B member sets).  Each
-//    member's CTAs read the shared store again: a batch of B reads it B
-//    times, where the same work needs one read.
+//    The first also runs with a member axis — what jax.vmap of the TPU
+//    kernel computes: B compactions of one shape and one cap in one
+//    launch, one CTA per (member, tile), each member with its own
+//    look-back state (compact_mask_batched: B masks).
 //
-// 2. compact_tiles — tile-local compaction fused with a predicate,
+// 2. compact_lookback_group — the third and fourth over a member axis
+//    whose members share one store (masked_interval_compact_batched: B
+//    bounds; member_compact_batched: B member sets): one CTA per (group,
+//    tile), a group being up to kGroup members, reads the tile's rows once
+//    and compacts them for every member of its group, so a batch of B
+//    reads the store ceil(B / kGroup) times.  Described before its code.
+//
+// 3. compact_tiles — tile-local compaction fused with a predicate,
 //    replacing one TPU kernel of the same file:
 //   * interval_compact_pallas         (IntervalPred<false>: the interval
 //                                      predicate without alive)
@@ -60,6 +63,8 @@
 // so an all-padding set matches nothing and INVALID never matches a pad.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -191,20 +196,6 @@ struct IntervalPred {
   const uint8_t* alive;  // read only when Masked
   int32_t plo, phi, olo, ohi;
   int64_t n;
-  // int32[members, 4] bounds in device memory (the batched entry), read by
-  // select; nullptr: the host's plo..ohi above hold for the one member
-  const int32_t* params;
-  static constexpr bool kStaged = false;
-  __device__ __forceinline__ int64_t rows() const { return n; }
-  __device__ __forceinline__ void select(int b) {
-    if (params != nullptr) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(params) + b);
-      plo = v.x;
-      phi = v.y;
-      olo = v.z;
-      ohi = v.w;
-    }
-  }
   __device__ __forceinline__ void stage(int32_t*) {}
   __device__ __forceinline__ bool in_range(int32_t pv, int32_t ov) const {
     return pv >= plo && pv < phi && ov >= olo && ov < ohi;
@@ -239,9 +230,6 @@ struct IntervalPred {
 struct IdSet {
   const int32_t* ids;  // device memory, or shared memory once staged
   int k;
-
-  // Member b's set: sets of one member axis lie [members, k] contiguous.
-  __device__ __forceinline__ void select(int b) { ids += (int64_t)b * k; }
 
   // Copy the set into shared memory at ``smem`` if it fits; returns the
   // number of int32 slots taken there (0 when it stays in device memory).
@@ -303,17 +291,9 @@ struct MemberPred {
   int32_t tid;
   IdSet mem, dom, rng;
   int64_t n;
-  static constexpr bool kStaged = true;
-  __device__ __forceinline__ int64_t rows() const { return n; }
-  // Member b's sets (tid and the store are shared by the members).
-  __device__ __forceinline__ void select(int b) {
-    mem.select(b);
-    if constexpr (HasDom) dom.select(b);
-    if constexpr (HasRng) rng.select(b);
-  }
 
-  // Run by every thread of the CTA, after select, before the first row; a
-  // barrier follows.
+  // Run by every thread of the CTA before the first row; a barrier
+  // follows.
   __device__ __forceinline__ void stage(int32_t* smem) {
     int used = mem.stage(smem);
     if constexpr (HasDom) used += dom.stage(smem + used);
@@ -456,7 +436,6 @@ compact_tiles(Pred pred, int64_t n, int block, int32_t* local,
 template <int NS>
 struct MaskBits {
   static constexpr int kStreams = NS;
-  static constexpr bool kStaged = false;
   const uint8_t* mask[NS];
   int64_t n;
   int64_t member_stride;  // bytes between two members' masks (K1 batched)
@@ -526,12 +505,12 @@ struct LookbackOut {
   unsigned* ticket;
 };
 
-// One CTA per (member, tile).  With a member axis (Members) tickets are
-// decoded member-major (member b holds tickets b * ntiles .. b * ntiles +
-// ntiles - 1, its tiles in order), so a tile looks back only over earlier
-// tickets of its own member: CTAs that are running or done, as for one
-// member.  Pred::select then points the predicate at the member's masks,
-// bounds or sets before any row is read, and its virtual rows replace nv.
+// One CTA per (member, tile).  With a member axis (Members: K1's masks)
+// tickets are decoded member-major (member b holds tickets b * ntiles ..
+// b * ntiles + ntiles - 1, its tiles in order), so a tile looks back only
+// over earlier tickets of its own member: CTAs that are running or done,
+// as for one member.  Pred::select then points the predicate at the
+// member's masks before any row is read, and its virtual rows replace nv.
 // Without it (the solo entries) the predicate stays in the kernel's
 // parameter space, as the member axis's runtime fields would cost the solo
 // kernels registers and occupancy.
@@ -555,10 +534,6 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int members, int64_t cap,
     tile = s_tile - member * ntiles;
     pred.select(member);
     nv = pred.rows();
-    if constexpr (Pred::kStaged) {
-      pred.stage(s_sets);
-      __syncthreads();
-    }
   }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -649,6 +624,16 @@ compact_lookback(Pred pred, int64_t nv, int ntiles, int members, int64_t cap,
   }
 }
 
+// The look-back outputs inside the entry's buffer (see the entries below).
+template <int NS>
+LookbackOut<NS> lookback_out(void* take, void* ok, void* total,
+                             void* scratch) {
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  return {static_cast<int32_t*>(take), static_cast<uint8_t*>(ok),
+          static_cast<int32_t*>(total), words + 1,
+          reinterpret_cast<unsigned*>(words)};
+}
+
 // Zero the outputs and the look-back state (one buffer of zero_bytes that
 // starts at take and holds ok, total and scratch), then launch one CTA per
 // (member, tile); nv is the most virtual rows a member has.  Members: the
@@ -667,13 +652,10 @@ int launch_lookback(const Pred& pred, long long members, long long nv,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(take, 0, (size_t)zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  LookbackOut<NS> out{static_cast<int32_t*>(take), static_cast<uint8_t*>(ok),
-                      static_cast<int32_t*>(total), words + 1,
-                      reinterpret_cast<unsigned*>(words)};
   compact_lookback<Pred, Members><<<(unsigned)(members * tiles), kScanThreads,
-                                    smem_bytes, st>>>(pred, nv, (int)tiles,
-                                                      (int)members, cap, out);
+                                    smem_bytes, st>>>(
+      pred, nv, (int)tiles, (int)members, cap,
+      lookback_out<NS>(take, ok, total, scratch));
   return (int)cudaGetLastError();
 }
 
@@ -691,58 +673,549 @@ long long mask_rows(const uint8_t* m, long long members, long long n,
   return n + shift;
 }
 
-template <bool Members, bool HasDom, bool HasRng>
-int launch_member(const int32_t* s, const int32_t* p, const int32_t* o,
-                  long long stride, const uint8_t* alive, int tid, IdSet mem,
-                  IdSet dom, IdSet rng, long long members, long long n,
-                  long long cap, void* take, void* ok, void* total,
-                  void* scratch, long long scratch_words, long long zero_bytes,
-                  void* stream) {
-  MemberPred<HasDom, HasRng> pred{s, p, o, stride, alive, tid, mem, dom, rng,
-                                  n};
-  return launch_lookback<Members>(pred, members, n, cap, take, ok, total,
-                                  scratch, scratch_words, zero_bytes,
-                                  pred.staged_bytes(), stream);
+// ---------------------------------------------------------------------------
+// compact_lookback_group: the look-back compaction for a group of members
+// over one shared store (K2 and K4 batched), one read of each tile's rows.
+//
+// What bounds it on the H100: device memory once more — 13 B a row of
+// the store, read once for up to kGroup members, and 5 B per output slot
+// of each (member, stream) — as long as the per-member work stays under
+// the read.  That work is a fixed cost per (member, tile) — its look-back
+// chain, its turn in the member loop — plus the tests and ballots of the
+// members whose rows the warp may hold (PERF.md §6: the per-member
+// cost, not the tests, sets the batched K2's time past a few members).
+//
+// Design: compact_lookback's tile (256 threads x 2 chunks x 16 rows) with
+// one chain of look-back state per (member, stream) — a chain, below.
+//   * Tickets are decoded group-major (group g holds tickets g * ntiles ..
+//     (g + 1) * ntiles - 1, its tiles in order): a tile looks back only on
+//     smaller tickets of its own group, running or done (forward
+//     progress, as for one member).
+//   * Rows: a warp reads 32 consecutive rows a step, kBatch steps in
+//     flight (warp_bits' loads), alive and the row's bound with them, so
+//     a dead row or one past the end is no hit of any member.  The batch's
+//     rows stay in registers while every member of the group is tested on
+//     them (GP::test; what the members share once, GP::prepare).  A store
+//     holds each predicate's rows together, so a warp's batch meets few
+//     members: GP::may_match compares the batch's range of p (and of o,
+//     K2), two redux a column, with the member's and skips the member
+//     outright.  A member with no hit takes one vote; else kBatch ballots
+//     give each lane the bits of its own 16 rows (lane l keeps the
+//     half-word of step l / 2, as in warp_bits) and the warp's count.
+//     Bits (16 per chain, chunk and thread; dynamic shared memory sized by
+//     the group) and warp counts start at 0 and only a member with hits
+//     writes them, so no per-member state lives in registers: the members
+//     are a runtime loop, and kGroup costs shared memory, not registers.
+//   * Counts: one thread per (chain, chunk) turns the 8 warp counts into
+//     exclusive warp offsets and the chunk's count.  The chains are
+//     independent: warp w looks back chains w, w + 8, ... after its lanes
+//     published all of their aggregates at once.
+//   * Writes: per (chain, chunk) with matches, below cap: a warp with
+//     matches scans its lanes' counts (__shfl_up_sync), stages its rows in
+//     s_rows (padded, as compact_lookback) and the CTA writes them
+//     coalesced.  Two barriers per (chain, chunk) with matches; none for
+//     the rest.  Packing several segments into one staging round (two
+//     barriers a round) ran slower on K2 (PERF.md §6).
+//   * K2's bounds (int32[B, 4], device memory) are staged per group; a
+//     test is two subtractions and two unsigned compares (p - plo < phi -
+//     plo, the width 0 for an empty range).  K4's sets get a key per
+//     member and set (SetKey): one that spans under 64 ids — a rewrite's
+//     domain and range predicates, a class with few subclasses — is
+//     tested as a 64-bit mask; a larger one is searched (IdSet), staged
+//     for the group's leading ``staged`` members if at most kStageMax ids,
+//     as many as kGroupStageBytes holds (member_compact_batched works it
+//     out from the sets' widths), in device memory for the others.
+// Outputs, status words and scratch are laid out as compact_lookback's
+// with a member axis: member b's stream st is output stream st * B + b.
+constexpr int kGroup = 16;  // members a CTA compacts over one read of rows
+constexpr int kGroupStageBytes = 64 * 1024;  // a group's staged sets
+
+// Dynamic shared memory of the bits: gsz members x NS streams x kChunks x
+// kScanThreads half-words.
+template <int NS>
+__host__ __device__ constexpr size_t group_bits_bytes(long long gsz) {
+  return (size_t)gsz * NS * kChunks * kScanThreads * sizeof(uint16_t);
 }
 
-template <bool Members>
-int member_entry(const void* s, const void* p, const void* o,
-                 long long stride, const void* alive, int tid,
-                 const void* mem, int mem_k, const void* dom, int dom_k,
-                 const void* rng, int rng_k, int has_dom, int has_rng,
-                 long long members, long long n, long long cap, void* take,
-                 void* ok, void* total, void* scratch,
-                 long long scratch_words, long long zero_bytes,
-                 void* stream) {
-  const int32_t* sc = static_cast<const int32_t*>(s);
-  const int32_t* pc = static_cast<const int32_t*>(p);
-  const int32_t* oc = static_cast<const int32_t*>(o);
-  const uint8_t* al = static_cast<const uint8_t*>(alive);
-  IdSet ms{static_cast<const int32_t*>(mem), mem_k};
-  IdSet ds{static_cast<const int32_t*>(dom), dom_k};
-  IdSet rs{static_cast<const int32_t*>(rng), rng_k};
-  if (has_dom && has_rng)
-    return launch_member<Members, true, true>(
-        sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
-        total, scratch, scratch_words, zero_bytes, stream);
-  if (has_dom)
-    return launch_member<Members, true, false>(
-        sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
-        total, scratch, scratch_words, zero_bytes, stream);
-  if (has_rng)
-    return launch_member<Members, false, true>(
-        sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
-        total, scratch, scratch_words, zero_bytes, stream);
-  return launch_member<Members, false, false>(
-      sc, pc, oc, stride, al, tid, ms, ds, rs, members, n, cap, take, ok,
-      total, scratch, scratch_words, zero_bytes, stream);
+// The least and the largest of the warp's kBatch * 32 values v.
+__device__ __forceinline__ int2 warp_range(const int32_t* v) {
+  int lo = v[0], hi = v[0];
+#pragma unroll
+  for (int k = 1; k < kBatch; ++k) {
+    lo = min(lo, v[k]);
+    hi = max(hi, v[k]);
+  }
+  return make_int2(__reduce_min_sync(kFull, lo), __reduce_max_sync(kFull, hi));
+}
+
+// K2 for a group: member first + m's bounds at params[first + m].
+struct IntervalGroup {
+  static constexpr int kStreams = 1;
+  const int32_t* p;
+  const int32_t* o;
+  int64_t stride;  // int32 elements between consecutive rows of p and o
+  const uint8_t* alive;
+  int64_t n;
+  const int4* params;  // int32[members, 4] (plo, phi, olo, ohi)
+  const int4* bounds;  // the group's, staged (stage)
+  static size_t staged_bytes(long long gsz) { return gsz * sizeof(int4); }
+  static constexpr size_t kMaxStaged = kGroup * sizeof(int4);
+  struct Rows {
+    int32_t p[kBatch], o[kBatch];
+  };
+  struct Pre {
+    int2 p, o;  // the warp's ranges of p and o in the batch
+  };
+  __device__ __forceinline__ void stage(uint8_t* smem, int first, int count) {
+    int4* s = reinterpret_cast<int4*>(smem);
+    for (int m = threadIdx.x; m < count; m += blockDim.x)
+      s[m] = __ldg(params + first + m);
+    bounds = s;
+  }
+  __device__ __forceinline__ void load(Rows& r, int k, int64_t i) const {
+    r.p[k] = __ldg(p + i * stride);
+    r.o[k] = __ldg(o + i * stride);
+  }
+  __device__ __forceinline__ Pre prepare(const Rows& r) const {
+    return {warp_range(r.p), warp_range(r.o)};
+  }
+  // Whether some row of the warp's batch may match member m: its box of p
+  // and o meets the member's (warp-uniform).
+  __device__ __forceinline__ bool may_match(Pre pre, int m) const {
+    const int4 b = bounds[m];
+    return pre.p.y >= b.x && pre.p.x < b.y && pre.o.y >= b.z && pre.o.x < b.w;
+  }
+  // plo <= p < phi && olo <= o < ohi, as p - plo < phi - plo unsigned
+  // (0 for an empty range)
+  __device__ __forceinline__ void test(const Rows& r, Pre, int m,
+                                       unsigned* hits) const {
+    const int4 b = bounds[m];
+    const unsigned pw = b.y > b.x ? (unsigned)b.y - (unsigned)b.x : 0u;
+    const unsigned ow = b.w > b.z ? (unsigned)b.w - (unsigned)b.z : 0u;
+    unsigned h = 0;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      h |= (unsigned)(((unsigned)r.p[k] - (unsigned)b.x < pw) &
+                      ((unsigned)r.o[k] - (unsigned)b.z < ow))
+           << k;
+    }
+    hits[0] = h;
+  }
+};
+
+// A member set's key, by one warp: its least and largest ids and, when they
+// lie under 64 apart (a rewrite's domain and range predicates, a class with
+// few subclasses), the set as a 64-bit mask over lo .. lo + 63 ("small"),
+// tested in a few instructions a row; an all-padding set is small with an
+// empty mask.  A larger set is searched (IdSet), its hi an upper bound.
+struct SetKey {
+  int lo, hi;
+  unsigned long long mask;
+  __device__ __forceinline__ bool small() const {
+    return (unsigned)hi - (unsigned)lo < 64u;
+  }
+  // Whether [lo, hi] meets the warp's range r of values.
+  __device__ __forceinline__ bool meets(int2 r) const {
+    return r.y >= lo && r.x <= hi;
+  }
+  // Bit j set iff v[j] is in the set (want's bits only); small keys only.
+  __device__ __forceinline__ unsigned contains_batch(const int32_t* v,
+                                                     unsigned want) const {
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const unsigned d = (unsigned)v[j] - (unsigned)lo;
+      m |= (unsigned)(d < 64u && ((mask >> (d & 63u)) & 1ull)) << j;
+    }
+    return m & want;
+  }
+};
+
+// The key of a sorted INT32_MAX-padded set of k ids, by a whole warp: the
+// first 64 slots read at once, their real ids ORed into the mask.
+__device__ __forceinline__ SetKey set_key(const int32_t* ids, int k) {
+  const int lane = threadIdx.x & 31;
+  const int32_t v0 = lane < k ? __ldg(ids + lane) : kInvalid;
+  const int32_t v1 = lane + 32 < k ? __ldg(ids + lane + 32) : kInvalid;
+  const bool more = k > 64 && __ldg(ids + 64) != kInvalid;
+  const int lo = __shfl_sync(kFull, v0, 0);
+  if (lo == kInvalid) return {0, 0, 0ull};  // all padding: matches nothing
+  const int hi = __reduce_max_sync(
+      kFull, max(v0 != kInvalid ? v0 : lo, v1 != kInvalid ? v1 : lo));
+  if (more || (unsigned)hi - (unsigned)lo >= 64u)
+    return {lo, more ? kInvalid - 1 : hi, 0ull};
+  const unsigned long long bits =
+      (v0 != kInvalid ? 1ull << (v0 - lo) : 0ull) |
+      (v1 != kInvalid ? 1ull << (v1 - lo) : 0ull);
+  const unsigned mlo = __reduce_or_sync(kFull, (unsigned)bits);
+  const unsigned mhi = __reduce_or_sync(kFull, (unsigned)(bits >> 32));
+  return {lo, hi, (unsigned long long)mhi << 32 | mlo};
+}
+
+// K4 for a group: member first + m's sets at mem + (first + m) * mem_k etc.
+template <bool HasDom, bool HasRng>
+struct MemberGroup {
+  static constexpr int kStreams = HasRng ? 2 : 1;
+  const int32_t* s;
+  const int32_t* p;
+  const int32_t* o;
+  int64_t stride;  // int32 elements between consecutive rows of s, p, o
+  const uint8_t* alive;
+  int64_t n;
+  int32_t tid;
+  const int32_t* mem;  // [members, mem_k], device memory; dom, rng alike
+  const int32_t* dom;
+  const int32_t* rng;
+  int mem_k, dom_k, rng_k;
+  int staged;  // leading members of a group whose sets are staged
+  const int32_t* sets;  // the staged sets (stage)
+  const SetKey* keys;  // each member's mem, dom and rng keys (stage)
+  int first;
+
+  // Staged ints a member: its sets of at most kStageMax ids, mem's first,
+  // then dom's, then rng's.
+  __host__ __device__ int mem_ints() const {
+    return mem_k <= kStageMax ? mem_k : 0;
+  }
+  __host__ __device__ int dom_ints() const {
+    return HasDom && dom_k <= kStageMax ? dom_k : 0;
+  }
+  __host__ __device__ int member_ints() const {
+    return mem_ints() + dom_ints() +
+           (HasRng && rng_k <= kStageMax ? rng_k : 0);
+  }
+  // The leading members of a group whose sets fit kGroupStageBytes.
+  int staged_members() const {
+    const int per = member_ints() * (int)sizeof(int32_t);
+    return per == 0 || kGroupStageBytes / per >= kGroup
+               ? kGroup
+               : kGroupStageBytes / per;
+  }
+  size_t staged_bytes(long long gsz) const {
+    return 3 * kGroup * sizeof(SetKey) +
+           (size_t)(staged < gsz ? staged : gsz) * member_ints() *
+               sizeof(int32_t);
+  }
+  static constexpr size_t kMaxStaged =
+      3 * kGroup * sizeof(SetKey) + kGroupStageBytes;
+
+  struct Rows {
+    int32_t s[kBatch], p[kBatch], o[kBatch];
+  };
+  struct Pre {
+    unsigned valid, typed;
+    int2 p;  // the warp's range of p in the batch
+    bool any_typed;  // some row of the warp's batch has p == tid
+  };
+  // The group's set keys (3 * kGroup at smem: member m's mem, dom and rng
+  // at 3m .. 3m + 2), one warp a set, then the leading ``staged`` members'
+  // sets.
+  __device__ __forceinline__ void stage(uint8_t* smem, int first_,
+                                        int count) {
+    SetKey* key = reinterpret_cast<SetKey*>(smem);
+    for (int i = threadIdx.x >> 5; i < 3 * count; i += kScanWarps) {
+      const int64_t b = first_ + i / 3;
+      const int which = i % 3;
+      if (which == 1 && !HasDom) continue;
+      if (which == 2 && !HasRng) continue;
+      const SetKey kv = which == 0   ? set_key(mem + b * mem_k, mem_k)
+                        : which == 1 ? set_key(dom + b * dom_k, dom_k)
+                                     : set_key(rng + b * rng_k, rng_k);
+      if ((threadIdx.x & 31) == 0) key[i] = kv;
+    }
+    keys = key;
+    int32_t* out =
+        reinterpret_cast<int32_t*>(smem + 3 * kGroup * sizeof(SetKey));
+    const int mi = mem_ints(), di = dom_ints(), per = member_ints();
+    const int ns = staged < count ? staged : count;
+    for (int i = threadIdx.x; i < ns * per; i += blockDim.x) {
+      const int m = i / per, r = i - m * per;
+      const int64_t b = first_ + m;
+      out[i] = r < mi        ? __ldg(mem + b * mem_k + r)
+               : r < mi + di ? __ldg(dom + b * dom_k + (r - mi))
+                             : __ldg(rng + b * rng_k + (r - mi - di));
+    }
+    sets = out;
+    first = first_;
+  }
+  // Member m's set of width k, staged at ``off`` ints into its slice.
+  __device__ __forceinline__ IdSet set_of(const int32_t* ids, int k, int m,
+                                          int off) const {
+    if (m < staged && k <= kStageMax)
+      return {sets + m * member_ints() + off, k};
+    return {ids + (int64_t)(first + m) * k, k};
+  }
+  __device__ __forceinline__ void load(Rows& r, int k, int64_t i) const {
+    r.s[k] = __ldg(s + i * stride);
+    r.p[k] = __ldg(p + i * stride);
+    r.o[k] = __ldg(o + i * stride);
+  }
+  __device__ __forceinline__ Pre prepare(const Rows& r) const {
+    Pre pre{0u, 0u, warp_range(r.p), false};
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      pre.valid |= (unsigned)(r.s[k] != kInvalid) << k;
+      pre.typed |= (unsigned)(r.p[k] == tid) << k;
+    }
+    pre.any_typed = __any_sync(kFull, pre.typed);
+    return pre;
+  }
+  // Whether some row of the warp's batch may match member m: a typed row,
+  // or the warp's p range meets the ids of m's dom or rng (warp-uniform).
+  __device__ __forceinline__ bool may_match(Pre pre, int m) const {
+    return pre.any_typed || (HasDom && keys[3 * m + 1].meets(pre.p)) ||
+           (HasRng && keys[3 * m + 2].meets(pre.p));
+  }
+  // MemberPred::test for member m; mem is tested only for typed rows, dom
+  // and rng only where the warp's p range meets the set's ids
+  // (warp-uniform).
+  __device__ __forceinline__ void test(const Rows& r, Pre pre, int m,
+                                       unsigned* hits) const {
+    unsigned ms = 0u;
+    if (pre.typed) {
+      const SetKey km = keys[3 * m];
+      ms = km.small() ? km.contains_batch(r.o, pre.typed)
+                      : set_of(mem, mem_k, m, 0).contains_batch(r.o, pre.typed);
+    }
+    if constexpr (HasDom) {
+      const SetKey kd = keys[3 * m + 1];
+      if (kd.meets(pre.p))
+        ms |= kd.small() ? kd.contains_batch(r.p, ~0u)
+                         : set_of(dom, dom_k, m, mem_ints())
+                               .contains_batch(r.p, ~0u);
+    }
+    hits[0] = ms & pre.valid;
+    if constexpr (HasRng) {
+      const SetKey kr = keys[3 * m + 2];
+      hits[1] = 0u;
+      if (kr.meets(pre.p))
+        hits[1] = (kr.small() ? kr.contains_batch(r.p, ~0u)
+                              : set_of(rng, rng_k, m, mem_ints() + dom_ints())
+                                    .contains_batch(r.p, ~0u)) &
+                  pre.valid;
+    }
+  }
+};
+
+template <typename GP>
+__global__ void __launch_bounds__(kScanThreads)
+compact_lookback_group(GP pred, int ntiles, int members, int64_t cap,
+                       LookbackOut<GP::kStreams> out) {
+  constexpr int NS = GP::kStreams;
+  constexpr int kChains = kGroup * NS;  // chain q: member q / NS, stream q % NS
+  static_assert(kChains <= 4 * kScanWarps, "four chains a warp at most");
+  extern __shared__ __align__(16) uint8_t s_dyn[];  // bits, then GP's
+  __shared__ int32_t s_rows[kChunkRows + kChunkRows / 16];  // padded
+  __shared__ int s_cnt[kChains * kChunks][kScanWarps];  // (chain, chunk)
+  __shared__ int s_tot[kChains * kChunks];
+  __shared__ unsigned s_excl[kChains];
+  __shared__ int s_tile;
+  if (threadIdx.x == 0) s_tile = (int)atomicAdd(out.ticket, 1u);
+  __syncthreads();
+  const int group = s_tile / ntiles;
+  const int tile = s_tile - group * ntiles;
+  const int first = group * kGroup;
+  const int count = members - first < kGroup ? members - first : kGroup;
+  const int nchains = count * NS;
+  const int gsz = members < kGroup ? members : kGroup;
+  uint16_t* s_bits = reinterpret_cast<uint16_t*>(s_dyn);  // [f][thread]
+  pred.stage(s_dyn + group_bits_bytes<NS>(gsz), first, count);
+  // bits and counts start at 0: a member with no match writes neither
+  for (int i = threadIdx.x; i < nchains * kChunks * kScanThreads / 8;
+       i += kScanThreads)
+    reinterpret_cast<uint4*>(s_dyn)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < nchains * kChunks * kScanWarps;
+       i += kScanThreads)
+    (&s_cnt[0][0])[i] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t n = pred.n;
+
+  // -- the rows, read once: every member's bits and warp counts --
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int64_t w0 = (int64_t)tile * kTileRows + (int64_t)c * kChunkRows +
+                       warp * kWarpRows;
+    if (w0 >= n) continue;  // warp-uniform: no rows, counts stay 0
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; h += kBatch) {
+      typename GP::Rows rows;
+      unsigned live = 0;
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int64_t i = w0 + 32 * (h + k) + lane;
+        const int64_t ic = i < n ? i : n - 1;
+        pred.load(rows, k, ic);
+        live |= (unsigned)(i < n && __ldg(pred.alive + ic) != 0) << k;
+      }
+      const typename GP::Pre pre = pred.prepare(rows);
+      const int step = lane >> 1;  // the step holding the lane's own rows
+      const bool mine = step >= h && step < h + kBatch;
+      for (int m = 0; m < count; ++m) {
+        if (!pred.may_match(pre, m)) continue;  // warp-uniform
+        unsigned hits[NS];
+        pred.test(rows, pre, m, hits);
+#pragma unroll
+        for (int st = 0; st < NS; ++st) {
+          const int f = (m * NS + st) * kChunks + c;
+          const unsigned hm = hits[st] & live;
+          if (!__any_sync(kFull, hm)) continue;
+          unsigned b = 0u;
+          int wc = 0;
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            const unsigned w = __ballot_sync(kFull, (hm >> k) & 1u);
+            wc += __popc(w);
+            b = step == h + k ? w : b;
+          }
+          b = (lane & 1) ? b >> 16 : b & 0xffffu;
+          if (mine) s_bits[f * kScanThreads + threadIdx.x] = (uint16_t)b;
+          if (lane == 0) s_cnt[f][warp] += wc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // -- warp counts -> exclusive warp offsets and chunk counts --
+  for (int f = threadIdx.x; f < nchains * kChunks; f += kScanThreads) {
+    int run = 0;
+#pragma unroll
+    for (int w = 0; w < kScanWarps; ++w) {
+      const int v = s_cnt[f][w];
+      s_cnt[f][w] = run;
+      run += v;
+    }
+    s_tot[f] = run;
+  }
+  __syncthreads();
+  // -- look-back: lanes publish the warp's chains' aggregates, then the
+  // warp looks back one chain at a time --
+  {
+    const int q = warp + kScanWarps * lane;
+    if (q < nchains) {
+      unsigned agg = 0;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) agg += (unsigned)s_tot[q * kChunks + c];
+      const int64_t j = (int64_t)(q % NS) * members + first + q / NS;
+      publish(out.status + j * ntiles + tile,
+              (tile == 0 ? kPrefix : kAggregate) | agg);
+      if (tile == 0) {
+        s_excl[q] = 0;
+        if (ntiles == 1) out.total[j] = (int32_t)agg;
+      }
+    }
+  }
+  if (tile > 0) {
+    for (int q = warp; q < nchains; q += kScanWarps) {
+      unsigned agg = 0;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) agg += (unsigned)s_tot[q * kChunks + c];
+      const int64_t j = (int64_t)(q % NS) * members + first + q / NS;
+      unsigned long long* status = out.status + j * ntiles;
+      const unsigned excl = look_back(status, tile, lane);
+      if (lane == 0) {
+        publish(status + tile, kPrefix | (excl + agg));
+        s_excl[q] = excl;
+        if (tile == ntiles - 1) out.total[j] = (int32_t)(excl + agg);
+      }
+    }
+  }
+  __syncthreads();
+  for (int q = 0; q < nchains; ++q) {
+    const int64_t j = (int64_t)(q % NS) * members + first + q / NS;
+    int64_t start = s_excl[q];
+    int32_t* take = out.take + j * cap;
+    uint8_t* ok = out.ok + j * cap;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int f = q * kChunks + c;
+      const int tc = s_tot[f];
+      if (tc > 0 && start < cap) {
+        const int wpre = s_cnt[f][warp];
+        const int wend = warp + 1 < kScanWarps ? s_cnt[f][warp + 1] : tc;
+        if (wend > wpre) {
+          unsigned b = s_bits[f * kScanThreads + threadIdx.x];
+          const int own = __popc(b);
+          int incl = own;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(kFull, incl, d);
+            if (lane >= d) incl += y;
+          }
+          int rank = wpre + incl - own;
+          const int64_t r0 = (int64_t)tile * kTileRows + (int64_t)c * kChunkRows + threadIdx.x * kRowsPerThread;
+          while (b) {
+            s_rows[rank + (rank >> 4)] = (int32_t)(r0 + __ffs(b) - 1);
+            ++rank;
+            b &= b - 1;
+          }
+        }
+        __syncthreads();
+        for (int jj = threadIdx.x; jj < tc; jj += kScanThreads) {
+          const int64_t r = start + jj;
+          if (r < cap) {
+            take[r] = s_rows[jj + (jj >> 4)];
+            ok[r] = 1;
+          }
+        }
+        __syncthreads();
+      }
+      start += tc;
+    }
+  }
+}
+
+// Zero the outputs and the look-back state as launch_lookback does, then
+// launch one CTA per (group, tile); pred_smem: the bytes GP stages for a
+// group of min(members, kGroup).  Each kernel opts in once, when first
+// launched (on the process's one card), to the most dynamic shared memory
+// any launch of it takes: the attribute is shared by the process's
+// threads, so no launch may lower it under another's.
+template <typename GP>
+int launch_group(const GP& pred, long long members, long long n,
+                 long long cap, void* take, void* ok, void* total,
+                 void* scratch, long long scratch_words, long long zero_bytes,
+                 size_t pred_smem, void* stream) {
+  constexpr int NS = GP::kStreams;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long tiles = n > 0 ? (n + kTileRows - 1) / kTileRows : 1;
+  const long long groups = (members + kGroup - 1) / kGroup;
+  const long long gsz = members < kGroup ? members : kGroup;
+  constexpr size_t kMaxSmem = group_bits_bytes<NS>(kGroup) + GP::kMaxStaged;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      compact_lookback_group<GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMaxSmem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const size_t smem = group_bits_bytes<NS>(gsz) + pred_smem;
+  if (members < 1 || NS * members * tiles + 1 > scratch_words || cap < 0 ||
+      cap >= (1ll << 31) || zero_bytes < 0 || groups * tiles >= (1ll << 31) ||
+      smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(take, 0, (size_t)zero_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  compact_lookback_group<GP><<<(unsigned)(groups * tiles), kScanThreads, smem,
+                               st>>>(pred, (int)tiles, (int)members, cap,
+                                     lookback_out<NS>(take, ok, total,
+                                                      scratch));
+  return (int)cudaGetLastError();
+}
+
+// Calls f(std::bool_constant<has_dom>, std::bool_constant<has_rng>).
+template <typename F>
+int with_branches(int has_dom, int has_rng, F f) {
+  if (has_dom && has_rng) return f(std::true_type{}, std::true_type{});
+  if (has_dom) return f(std::true_type{}, std::false_type{});
+  if (has_rng) return f(std::false_type{}, std::true_type{});
+  return f(std::false_type{}, std::false_type{});
 }
 
 }  // namespace
 
 // The look-back entries (compact_mask, dual_compact_mask,
 // masked_interval_compact, member_compact and the batched entries of the
-// first, third and fourth) share their output arguments: one buffer of
+// first, third and fourth, the last two through compact_lookback_group)
+// share their output arguments: one buffer of
 // zero_bytes starting at take, which the entry zeroes, holds take
 // (int32[S * B * cap]), ok (uint8[S * B * cap]), total (int32[S * B]) and
 // scratch (scratch_words >= S * B * ceil((n + 15) / 8192) + 1 int64 words:
@@ -804,26 +1277,28 @@ extern "C" int masked_interval_compact(const void* p, const void* o,
   IntervalPred<true> pred{static_cast<const int32_t*>(p),
                           static_cast<const int32_t*>(o), stride,
                           static_cast<const uint8_t*>(alive),
-                          plo, phi, olo, ohi, n, nullptr};
+                          plo, phi, olo, ohi, n};
   return launch_lookback<false>(pred, 1, n, cap, take, ok, total, scratch,
                                 scratch_words, zero_bytes, 0, stream);
 }
 
 // K2 over a member axis: one store (p, o, alive as above) shared by the
 // members, member b's bounds (plo, phi, olo, ohi) at params[4b .. 4b + 3]
-// in device memory (int32, 16-byte aligned), read by its own CTAs.
+// in device memory (int32, 16-byte aligned), staged by its group's CTAs.
 extern "C" int masked_interval_compact_batched(
     const void* p, const void* o, long long stride, const void* alive,
     const void* params, long long members, long long n, long long cap,
     void* take, void* ok, void* total, void* scratch, long long scratch_words,
     long long zero_bytes, void* stream) {
-  IntervalPred<true> pred{static_cast<const int32_t*>(p),
-                          static_cast<const int32_t*>(o), stride,
-                          static_cast<const uint8_t*>(alive),
-                          0, 0, 0, 0, n,
-                          static_cast<const int32_t*>(params)};
-  return launch_lookback<true>(pred, members, n, cap, take, ok, total, scratch,
-                               scratch_words, zero_bytes, 0, stream);
+  IntervalGroup pred{static_cast<const int32_t*>(p),
+                     static_cast<const int32_t*>(o), stride,
+                     static_cast<const uint8_t*>(alive), n,
+                     static_cast<const int4*>(params), nullptr};
+  return launch_group(pred, members, n, cap, take, ok, total, scratch,
+                      scratch_words, zero_bytes,
+                      IntervalGroup::staged_bytes(members < kGroup ? members
+                                                                   : kGroup),
+                      stream);
 }
 
 // masked_interval_compact's predicate without the alive column, compacted
@@ -834,7 +1309,7 @@ extern "C" int interval_compact(const void* p, const void* o, long long stride,
                                 void* counts, void* stream) {
   IntervalPred<false> pred{static_cast<const int32_t*>(p),
                            static_cast<const int32_t*>(o), stride, nullptr,
-                           plo, phi, olo, ohi, n, nullptr};
+                           plo, phi, olo, ohi, n};
   compact_tiles<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       pred, n, block, static_cast<int32_t*>(local),
       static_cast<int32_t*>(counts));
@@ -854,15 +1329,27 @@ extern "C" int member_compact(const void* s, const void* p, const void* o,
                               void* total, void* scratch,
                               long long scratch_words, long long zero_bytes,
                               void* stream) {
-  return member_entry<false>(s, p, o, stride, alive, tid, mem, mem_k, dom,
-                             dom_k, rng, rng_k, has_dom, has_rng, 1, n, cap,
-                             take, ok, total, scratch, scratch_words,
-                             zero_bytes, stream);
+  const int32_t* sc = static_cast<const int32_t*>(s);
+  const int32_t* pc = static_cast<const int32_t*>(p);
+  const int32_t* oc = static_cast<const int32_t*>(o);
+  const uint8_t* al = static_cast<const uint8_t*>(alive);
+  const IdSet ms{static_cast<const int32_t*>(mem), mem_k};
+  const IdSet ds{static_cast<const int32_t*>(dom), dom_k};
+  const IdSet rs{static_cast<const int32_t*>(rng), rng_k};
+  return with_branches(has_dom, has_rng, [&](auto d, auto r) {
+    MemberPred<decltype(d)::value, decltype(r)::value> pred{
+        sc, pc, oc, stride, al, tid, ms, ds, rs, n};
+    return launch_lookback<false>(pred, 1, n, cap, take, ok, total, scratch,
+                                  scratch_words, zero_bytes,
+                                  pred.staged_bytes(), stream);
+  });
 }
 
 // K4 over a member axis: one store (s, p, o, alive, tid as above) shared by
 // the members; mem/dom/rng hold one set per member, [members, mem_k] etc.
-// contiguous, and each member's CTAs stage and search their own.
+// contiguous.  A group's CTAs stage the sets of as many of its leading
+// members as kGroupStageBytes holds and search the others' in device
+// memory.
 extern "C" int member_compact_batched(
     const void* s, const void* p, const void* o, long long stride,
     const void* alive, int tid, const void* mem, int mem_k, const void* dom,
@@ -870,8 +1357,18 @@ extern "C" int member_compact_batched(
     long long members, long long n, long long cap, void* take, void* ok,
     void* total, void* scratch, long long scratch_words, long long zero_bytes,
     void* stream) {
-  return member_entry<true>(s, p, o, stride, alive, tid, mem, mem_k, dom,
-                            dom_k, rng, rng_k, has_dom, has_rng, members, n,
-                            cap, take, ok, total, scratch, scratch_words,
-                            zero_bytes, stream);
+  const long long gsz = members < kGroup ? members : kGroup;
+  return with_branches(has_dom, has_rng, [&](auto d, auto r) {
+    MemberGroup<decltype(d)::value, decltype(r)::value> pred{
+        static_cast<const int32_t*>(s), static_cast<const int32_t*>(p),
+        static_cast<const int32_t*>(o), stride,
+        static_cast<const uint8_t*>(alive), n, tid,
+        static_cast<const int32_t*>(mem), static_cast<const int32_t*>(dom),
+        static_cast<const int32_t*>(rng), mem_k, dom_k, rng_k, 0, nullptr,
+        nullptr, 0};
+    pred.staged = pred.staged_members();
+    return launch_group(pred, members, n, cap, take, ok, total, scratch,
+                        scratch_words, zero_bytes, pred.staged_bytes(gsz),
+                        stream);
+  });
 }

@@ -25,10 +25,14 @@ torch op follows it.
 
 Three of them have a batched form — what ``jax.vmap`` of the TPU kernel
 computes: B independent compactions of one shape and one cap, in ONE
-launch (the kernel's member axis), each output gaining a leading [B]:
-``compact_mask_batched`` (masks bool[B, n]),
+launch, each output gaining a leading [B]: ``compact_mask_batched``
+(masks bool[B, n]: one CTA per member and tile),
 ``masked_interval_compact_batched`` (one store, bounds int32[B, 4] on the
-device) and ``member_compact_batched`` (one store, sets [B, k] each).
+device) and ``member_compact_batched`` (one store, sets [B, k] each).  The
+last two run ``compact_lookback_group``: a CTA reads a tile of the shared
+store once and compacts it for a group of up to 16 members, so one launch
+reads the store ceil(B / 16) times (``launched_ctas`` reads back how many
+CTAs a launch ran).
 
 One wrapper launches the tile-local kernel (``compact_tiles``), fusing a
 predicate with a compaction per tile: ``interval_tiles``, the interval
@@ -111,6 +115,26 @@ def compact_mask_plain(mask: torch.Tensor, cap: int):
     return take, ok, torch.tensor(total, dtype=torch.int32, device=mask.device)
 
 
+def _scratch_at(outs: int, cap: int) -> int:
+    """Where the scratch starts, in int32 words, in the buffer of
+    ``_lookback_outputs`` for ``outs`` output streams of ``cap`` slots."""
+    slots = outs * cap
+    at = slots + outs + -(-slots // 4)
+    return at + (at & 1)  # int64 words start 8-byte aligned
+
+
+def launched_ctas(take: torch.Tensor, streams: int) -> int:
+    """The CTAs that the look-back launch which wrote ``take`` (stream 0's
+    take of a batched or solo output of ``streams`` streams, on the device)
+    ran, read back from its ticket: each CTA draws one.  Over ``n`` rows a
+    launch runs ceil(n / 8192) tiles per read of the store.  Synchronizes.
+    """
+    b, cap = (1, take.shape[0]) if take.dim() == 1 else tuple(take.shape)
+    ticket = torch.empty(0, dtype=torch.int32, device=take.device).set_(
+        take.untyped_storage(), _scratch_at(streams * b, cap), (2,), (1,))
+    return int(ticket.view(torch.int64).item())
+
+
 def _lookback_outputs(dev: torch.device, streams: int, n: int, cap: int,
                       members: int | None = None):
     """The outputs of one look-back launch over ``n`` rows, in one int32
@@ -132,8 +156,7 @@ def _lookback_outputs(dev: torch.device, streams: int, n: int, cap: int,
     words = 1 + outs * (n // _TILE_ROWS + 2)  # a ragged head adds a tile
     slots = outs * cap
     ok_at = slots + outs
-    scratch_at = ok_at + -(-slots // 4)
-    scratch_at += scratch_at & 1  # int64 words start 8-byte aligned
+    scratch_at = _scratch_at(outs, cap)
     buf = torch.empty(scratch_at + 2 * words, dtype=torch.int32, device=dev)
     ok_bytes = buf.view(torch.bool)
     at = buf.data_ptr()
@@ -263,7 +286,7 @@ def masked_interval_compact_batched(p: torch.Tensor, o: torch.Tensor,
 
     ``p``/``o``/``alive`` as ``masked_interval_compact`` takes them, shared;
     ``params``: int32[B, 4] (plo, phi, olo, ohi per member) on the store's
-    device, read there by each member's CTAs (no host copy).
+    device, read there by each group's CTAs (no host copy).
     """
     if p.device.type == "cpu":
         return masked_interval_compact_batched_plain(p, o, alive, params, cap)

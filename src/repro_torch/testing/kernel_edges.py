@@ -46,7 +46,25 @@ def closure_expand_edges(device, seed: int = 0):
                     yield pool_d[off:off + n], ids_d, anc_d
 
 
-BATCH_B = (1, 2, 3, 16)  # members of one batched launch
+# compact_lookback_group (csrc/stream_compact.cu), which runs the batched
+# K2 and K4: the members a CTA compacts (kGroup), the ids of a set it may
+# stage (kStageMax) and the bytes of a group's staged sets (kGroupStageBytes)
+GROUP, STAGE_MAX, STAGE_BYTES = 16, 2048, 64 << 10
+
+
+def staged_members(widths) -> int:
+    """The leading members of a group whose sets the group kernel stages
+    for K4 (the rest are searched in device memory), for members whose
+    searched sets have these widths (mem's, and dom's and rng's with their
+    branches): sets past STAGE_MAX ids are never staged; of the others, as
+    many members' as STAGE_BYTES hold."""
+    per = 4 * sum(k for k in widths if k <= STAGE_MAX)
+    return GROUP if per == 0 else min(GROUP, STAGE_BYTES // per)
+
+
+# members of one batched launch: the group boundaries of the batched K2
+# and K4 among them
+BATCH_B = (1, 2, 3, GROUP - 1, GROUP, GROUP + 1, 2 * GROUP + 1)
 BATCH_N = (0, 1, 8191, 8192, 8193, (1 << 21) + 3)  # rows; 8,192 a tile
 BATCH_KINDS = ("all-false", "all-true", "differing")
 _I32_MIN, _I32_MAX = -2**31, 2**31 - 1
@@ -56,16 +74,16 @@ def _caps(n: int):
     return sorted({0, 1, n, n + 5})
 
 
-def compact_mask_batched_edges(device, seed: int = 0):
+def compact_mask_batched_edges(device, seed: int = 0, ns=BATCH_N):
     """``(mask, cap)`` for ``compact_mask_batched``: every B of ``BATCH_B``,
-    n of ``BATCH_N``, cap of {0, 1, n, n + 5}, members all false, all true,
-    and differing (member b set with probability (b + 1) / (B + 1)); the
+    n of ``ns``, cap of {0, 1, n, n + 5}, members all false, all true, and
+    differing (member b set with probability (b + 1) / (B + 1)); the
     differing masks are rows of a wider buffer, 3 bytes off 16-byte
     alignment with a row stride of n + 35, so members sit at different
     offsets from 16 bytes."""
     g = torch.Generator().manual_seed(seed)
     for b in BATCH_B:
-        for n in BATCH_N:
+        for n in ns:
             prob = (torch.arange(b) + 1.0)[:, None] / (b + 1)
             wide = torch.rand((b, n + 35), generator=g) < prob
             masks = {"all-false": torch.zeros((b, n), dtype=torch.bool),
@@ -79,7 +97,9 @@ def compact_mask_batched_edges(device, seed: int = 0):
 
 def _interval_params(kind: str, b: int, g):
     """Per-member (plo, phi, olo, ohi): none, all or differing rows match;
-    differing mixes ordinary, inverted, empty and full-range bounds."""
+    differing mixes bounds drawn in every field (four distinct values of
+    [0, 64]: plo < phi and olo < ohi), inverted, empty and full-range
+    ones."""
     if kind == "all-false":  # inverted and empty bounds
         rows = [(40, 10, 0, 64) if i % 2 else (7, 7, 0, 64) for i in range(b)]
     elif kind == "all-true":
@@ -87,26 +107,28 @@ def _interval_params(kind: str, b: int, g):
     else:
         rows = []
         for i in range(b):
-            lo, hi = sorted(torch.randint(0, 65, (2,), generator=g).tolist())
-            rows.append([(lo, hi, 0, 48), (50, 10, 0, 64), (9, 9, 0, 64),
+            lo, hi, olo, ohi = (torch.randperm(65, generator=g)[:4]
+                                .view(2, 2).sort(1).values.view(-1)
+                                .tolist())
+            rows.append([(lo, hi, olo, ohi), (50, 10, 0, 64), (9, 9, 0, 64),
                          (_I32_MIN, _I32_MAX, _I32_MIN, _I32_MAX)][i % 4])
     return torch.tensor(rows, dtype=torch.int32)
 
 
-def masked_interval_batched_edges(device, seed: int = 0):
+def masked_interval_batched_edges(device, seed: int = 0, ns=BATCH_N):
     """``(p, o, alive, params, cap)`` for
     ``masked_interval_compact_batched``: p and o strided columns of one
     [n, 3] store of small ids, alive partly false (all true for the
     all-true members), params int32[B, 4] from ``_interval_params``, at
-    every B, n and cap of the batched edges."""
+    every B of ``BATCH_B``, n of ``ns`` and cap of the batched edges."""
     g = torch.Generator().manual_seed(seed)
-    nmax = max(BATCH_N)
+    nmax = max(ns)
     rows = torch.randint(0, 64, (nmax, 3), generator=g,
                          dtype=torch.int32).to(device)
     alive_part = (torch.rand(nmax, generator=g) < 0.9).to(device)
     alive_all = torch.ones(nmax, dtype=torch.bool, device=device)
     for b in BATCH_B:
-        for n in BATCH_N:
+        for n in ns:
             for kind in BATCH_KINDS:
                 params = _interval_params(kind, b, g).to(device)
                 alive = (alive_all if kind == "all-true" else alive_part)[:n]
@@ -114,12 +136,15 @@ def masked_interval_batched_edges(device, seed: int = 0):
                     yield rows[:n, 1], rows[:n, 2], alive, params, cap
 
 
-def _member_sets(kind: str, b: int, g, big: bool):
-    """Per-member (mem [B, 8 or 4,096], dom [B, 16], rng [B, 16]) sets of a
-    store whose p lies in [0, 16) and o in [0, 64): all padding, every p
-    in dom and rng (every row hits), or random per member (mem of 4,096
-    slots, past the 2,048 a CTA stages, when ``big``)."""
-    mk = 4096 if big else 8
+def _member_sets(kind: str, b: int, g, mk: int):
+    """Per-member (mem [B, mk], dom [B, 16], rng [B, 16]) sets of a store
+    whose p lies in [0, 16) and o in [0, 64): all padding, every p in dom
+    and rng (every row hits), or random per member.  Random mem sets past
+    ``STAGE_MAX`` slots are drawn from [0, 2**20); the others from
+    o's range, member i's with {}, {0, 63}, {0, 64} or {5, 2**20} added
+    for i % 4 = 0 .. 3 (the group kernel tests a set that spans under 64
+    ids as a mask and searches a wider one); every other member's dom
+    holds an id past the mask's reach too."""
 
     def padded(ids, cap):
         out = torch.full((cap,), _I32_MAX, dtype=torch.int32)
@@ -127,30 +152,38 @@ def _member_sets(kind: str, b: int, g, big: bool):
         out[: ids.shape[0]] = ids
         return out
 
-    def rand(hi, most):
+    def rand(hi, most, extra=()):
         k = int(torch.randint(0, most + 1, (1,), generator=g))
-        return torch.randint(0, hi, (k,), generator=g)
+        return torch.cat([torch.randint(0, hi, (k,), generator=g),
+                          torch.tensor(extra, dtype=torch.int64)])
 
     if kind == "all-false":
         sets = [([], [], [])] * b
     elif kind == "all-true":
         sets = [(range(0, 64, 9), range(16), range(16))] * b
     else:
-        sets = [(rand(1 << 20 if big else 64, mk), rand(16, 4), rand(16, 2))
-                for _ in range(b)]
+        sets = [(rand(1 << 20, mk) if mk > STAGE_MAX else
+                 rand(64, min(mk, 64) - 2,
+                      ((), (0, 63), (0, 64), (5, 1 << 20))[i % 4]),
+                 rand(16, 4, (4096 + i,) if i % 2 else ()), rand(16, 2))
+                for i in range(b)]
     return [torch.stack([padded(s[i], cap) for s in sets])
             for i, cap in enumerate((mk, 16, 16))]
 
 
-def member_batched_edges(device, seed: int = 0):
+def member_batched_edges(device, seed: int = 0, ns=BATCH_N):
     """``(s, p, o, alive, tid, mem, dom, rng, has_dom, has_rng, cap)`` for
     ``member_compact_batched``: one [n, 3] store (p in [0, 16), o in
     [0, 64), every 97th subject INVALID, alive partly false), tid 3, sets
-    from ``_member_sets``; every has_dom/has_rng pair below 8,194 rows,
-    both branches past it; members of 4,096-slot mem sets (searched in
-    device memory, per member) at B of 3."""
+    from ``_member_sets`` at every B of ``BATCH_B`` and n of ``ns``; every
+    has_dom/has_rng pair below 8,194 rows, both branches past it.  The
+    differing members' mem sets hold 8 slots, but 4,096 at B of 3 (past
+    ``STAGE_MAX``: searched in device memory, per member) and 2,048 at B
+    of GROUP + 1 and 2 GROUP + 1 (staged, but a group's exceed the staging
+    budget: its leading members' sets are staged, the others' searched in
+    device memory)."""
     g = torch.Generator().manual_seed(seed)
-    nmax = max(BATCH_N)
+    nmax = max(ns)
     rows = torch.stack([torch.randint(0, 1 << 20, (nmax,), generator=g),
                         torch.randint(0, 16, (nmax,), generator=g),
                         torch.randint(0, 64, (nmax,), generator=g)],
@@ -159,13 +192,17 @@ def member_batched_edges(device, seed: int = 0):
     rows = rows.to(device)
     alive = (torch.rand(nmax, generator=g) < 0.9).to(device)
     for b in BATCH_B:
-        for n in BATCH_N:
+        for n in ns:
             flags = ((True, True),) if n > 8193 else (
                 (False, False), (True, False), (False, True), (True, True))
             for kind in BATCH_KINDS:
-                big = kind == "differing" and b == 3
+                mk = 8
+                if kind == "differing" and b == 3:
+                    mk = 2 * STAGE_MAX
+                elif kind == "differing" and b in (GROUP + 1, 2 * GROUP + 1):
+                    mk = STAGE_MAX
                 mem, dom, rng = (t.to(device)
-                                 for t in _member_sets(kind, b, g, big))
+                                 for t in _member_sets(kind, b, g, mk))
                 for hd, hr in flags:
                     for cap in _caps(n):
                         yield (rows[:n, 0], rows[:n, 1], rows[:n, 2],

@@ -301,10 +301,12 @@ def _dev_or_skip():
 def test_cuda_batched_compactions_match_plain():
     """The batched look-back compactions (K1, K2, K4 with a member axis)
     equal their plain versions (the solo plain version per member), bit for
-    bit, at the shared edges of ``kernel_edges``: B = 1, 2, 3, 16; n = 0, 1,
-    8,191, 8,192, 8,193, 2**21 + 3; cap = 0, 1, n, n + 5; members all false,
-    all true and differing (masks off 16 bytes, K2 bounds inverted, empty
-    and full-range, alive partly false, K4 sets past the staged 2,048)."""
+    bit, at the shared edges of ``kernel_edges``: B = 1, 2, 3 and the
+    group boundaries 15, 16, 17, 33; n = 0, 1, 8,191, 8,192, 8,193,
+    2**21 + 3; cap = 0, 1, n, n + 5; members all false, all true and
+    differing (masks off 16 bytes, K2 bounds differing in every field,
+    inverted, empty and full-range, alive partly false, K4 sets past the
+    staged 2,048 and groups past the staging budget)."""
     dev = _dev_or_skip()
     for mask, cap in compact_mask_batched_edges(dev):
         _same(t_sc.compact_mask_batched(mask, cap),
@@ -315,6 +317,34 @@ def test_cuda_batched_compactions_match_plain():
     for args in member_batched_edges(dev):
         _same(_flat(t_sc.member_compact_batched(*args)),
               _flat(t_sc.member_compact_batched_plain(*args)))
+
+
+@pytest.mark.cuda
+def test_cuda_group_kernel_reads_the_store_once_per_group():
+    """The batched K2 and K4 run one CTA per (group of up to 16 members,
+    tile of 8,192 rows), counted by the launch's ticket; the batched K1 one
+    per (member, tile) (needs a card)."""
+    dev = _dev_or_skip()
+    n, tiles = 3 * 8192 + 5, 4
+    g = torch.Generator().manual_seed(6)
+    rows = torch.randint(0, 64, (n, 3), generator=g, dtype=torch.int32).to(dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    for b in (1, 15, 16, 17, 33):
+        groups = -(-b // 16)
+        params = torch.tensor([[0, 32, 0, 64]] * b, dtype=torch.int32,
+                              device=dev)
+        got = t_sc.masked_interval_compact_batched(rows[:, 1], rows[:, 2],
+                                                   alive, params, 64)
+        assert t_sc.launched_ctas(got[0], 1) == groups * tiles
+        sets = torch.full((b, 8), 2**31 - 1, dtype=torch.int32, device=dev)
+        sets[:, 0] = torch.arange(b, dtype=torch.int32, device=dev)
+        got = t_sc.member_compact_batched(rows[:, 0], rows[:, 1], rows[:, 2],
+                                          alive, 3, sets, sets, sets, True,
+                                          True, 64)
+        assert t_sc.launched_ctas(got[0][0], 2) == groups * tiles
+        mask = (torch.rand((b, n), generator=g) < 0.5).to(dev)
+        got = t_sc.compact_mask_batched(mask, 64)
+        assert t_sc.launched_ctas(got[0], 1) == b * tiles
 
 
 @pytest.mark.cuda

@@ -29,8 +29,11 @@ from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import stream_compact as t_sc
 from repro_torch.kernels.stream_compact import member_masks
 from repro_torch.rdf.generator import generate_random_abox
+from repro_torch.testing import kernel_edges as ke
 from repro_torch.testing.kernel_edges import (
-    CLOSURE_C, CLOSURE_D, closure_expand_edges,
+    BATCH_B, CLOSURE_C, CLOSURE_D, closure_expand_edges,
+    compact_mask_batched_edges, masked_interval_batched_edges,
+    member_batched_edges,
 )
 
 from test_torch_delta import _disjoint_delta, _spec
@@ -284,3 +287,104 @@ def test_dual_masked_compact_both_matches_reference():
     for g3, w3 in zip(got, want):
         for g, w in zip(g3, w3):
             _eq(g, w)
+
+
+def test_group_split_and_staging_budget():
+    """The group split and the staging budget on the host: the batched
+    edges straddle the group kernel's GROUP members, ``kernel_edges``' copy
+    of its staging rule stages as many leading members' sets as the budget
+    holds (sets past STAGE_MAX ids never), and ``launched_ctas`` reads the
+    ticket where the entry's scratch argument puts it."""
+    G, most = ke.GROUP, ke.STAGE_MAX
+    assert {G - 1, G, G + 1, 2 * G + 1} <= set(BATCH_B)
+    assert ke.staged_members([8, 16, 16]) == ke.staged_members([8]) == G
+    per = 4 * (most + 32)
+    assert ke.staged_members([most, 16, 16]) == ke.STAGE_BYTES // per < G
+    assert ke.staged_members([3 * most] * 3) == G  # none staged
+    assert ke.staged_members([2 * most, 16, 16]) == G
+    assert ke.staged_members([most] * 3) == 2
+    cpu = torch.device("cpu")
+    for streams in (1, 2):
+        for members in (None, 1, 2 * G + 1):
+            for n, cap in ((0, 0), (1, 5), (3 * 8192 + 1, 4097)):
+                args, outs = t_sc._lookback_outputs(cpu, streams, n, cap,
+                                                    members)
+                at, scratch = args[1], args[4]
+                ends = [t.data_ptr() + t.numel() * t.element_size()
+                        for triple in outs for t in triple]
+                assert scratch % 8 == 0 and scratch >= max(ends)
+                assert scratch + 8 * args[5] <= at + args[6]
+                take = outs[0][0]
+                buf = torch.empty(0, dtype=torch.int64).set_(
+                    take.untyped_storage())
+                buf[(scratch - at) // 8] = 12345 + n
+                assert t_sc.launched_ctas(take, streams) == 12345 + n
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _well_formed_set(ids):
+    b, k = ids.shape
+    assert ids.dtype == torch.int32 and ids.is_contiguous()
+    assert k > 0 and k & (k - 1) == 0
+    real = ids != I32_MAX
+    assert torch.equal(real, real.cummin(1).values)  # padding only behind
+    assert bool((ids[:, 1:] >= ids[:, :-1]).all())
+
+
+def test_batched_edges_are_well_formed_and_per_member():
+    """The card's batched edges (``kernel_edges``) at small n through the
+    batched wrappers on the CPU (their plain versions): every case is well
+    formed, and each member's outputs equal the solo wrapper's on that
+    member.  Among them: B at the batched K2/K4 group boundaries, K2
+    members whose bounds differ in every field, and K4 groups past the
+    staging budget (some members' sets staged, the others' not)."""
+    ns = (0, 1, 37)
+    seen = set()
+    for mask, cap in compact_mask_batched_edges("cpu", ns=ns):
+        b, n = mask.shape
+        assert mask.dtype == torch.bool and (n <= 1 or mask.stride(1) == 1)
+        got = t_sc.compact_mask_batched(mask, cap)
+        assert got[0].shape == got[1].shape == (b, cap)
+        for m in range(b):
+            _same([t[m] for t in got], t_sc.compact_mask(mask[m], cap))
+        seen.add(b)
+    assert seen == set(BATCH_B)
+    every_field = False
+    for p, o, alive, params, cap in masked_interval_batched_edges("cpu",
+                                                                  ns=ns):
+        n, b = p.shape[0], params.shape[0]
+        assert p.dtype == o.dtype == torch.int32 and p.stride() == o.stride()
+        assert alive.dtype == torch.bool and alive.shape == (n,)
+        assert params.dtype == torch.int32 and params.shape == (b, 4)
+        every_field |= any(bool((params[i] != params[j]).all())
+                           for i in range(b) for j in range(i))
+        got = t_sc.masked_interval_compact_batched(p, o, alive, params, cap)
+        for m in range(b):
+            _same([t[m] for t in got], t_sc.masked_interval_compact(
+                p, o, alive, params[m].tolist(), cap))
+    assert every_field
+    mixed = False
+    for args in member_batched_edges("cpu", ns=ns):
+        s, p, o, alive, tid, mem, dom, rng, hd, hr, cap = args
+        n, b = s.shape[0], mem.shape[0]
+        assert s.stride() == p.stride() == o.stride() and s.shape == (n,)
+        assert dom.shape[0] == rng.shape[0] == b
+        for ids in (mem, dom, rng):
+            _well_formed_set(ids)
+        widths = [mem.shape[1]] + [t.shape[1] for t, on in ((dom, hd),
+                                                            (rng, hr)) if on]
+        mixed |= b > ke.GROUP and 0 < ke.staged_members(widths) < \
+            ke.GROUP and bool((mem[:, 0] != I32_MAX).any())
+        got = t_sc.member_compact_batched(*args)
+        assert len(got) == (2 if hr else 1)
+        for m in range(b):
+            solo = t_sc.member_compact(s, p, o, alive, tid, mem[m], dom[m],
+                                       rng[m], hd, hr, cap)
+            for g3, w3 in zip(got, solo):
+                _same([t[m] for t in g3], w3)
+    assert mixed
