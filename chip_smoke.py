@@ -15,6 +15,10 @@ line:
                 Q1–Q4 answer counts in litemat and full, indexed and scan,
                 and in rewrite mode (equal to litemat's and full's), against
                 the reference's published numbers;
+     quickstart — examples/quickstart_torch.py on the card (bernd and
+                hubert in all three modes), and the N-Triples parser:
+                LUBM-1's 136,826 written lines parsed back (timed, the
+                same triples) and built on the card;
   4. lubm100  — LUBM-100 (seed 0): build with per-stage seconds and peak
                 device memory; Q1–Q4 in litemat and full, indexed answers
                 equal to scan answers, Q4's INL through the merge-path
@@ -57,6 +61,17 @@ line:
                 outcome ok and no batch fallen back to solo runs; a pinned
                 version unchanged across an insert and a compaction, a
                 fresh pin equal to the live store;
+     lubm100_telemetry — telemetry on the live store: one ledger sample
+                of the store and a runtime's snapshots under
+                ``torch.cuda.set_sync_debug_mode("error")`` (base at least
+                the three stores, total under ``memory_allocated``, the
+                store's live triples, a second sample equal); the SLO loop
+                driven by hand (ok -> page under injected faults -> ok,
+                the knobs lowered and restored, valid ``slo_transition``
+                traces); the rollup thread every 0.05 s under the insert
+                stream (every outcome ok, no tick error in 20 ticks or
+                more); trace and metrics exports under build/telemetry/,
+                valid alone and aggregated;
   9. kernels  — each kernel against its plain version on the card at the
                 main path's shapes and on edge cases (exact equality), its
                 time beside its bound, its plain version's and one PyTorch
@@ -75,7 +90,7 @@ line:
                 the ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–8 and read just after it (a
-                ``window`` line each), and the line sums the six windows.
+                ``window`` line each), and the line sums the eight windows.
                 The scratch builds the checks compare against run with the
                 counters set back, so only the main path's launches count.
 
@@ -449,6 +464,48 @@ def phase_lubm1():
     emit({"phase": "lubm1", "seed": 0, "sizes": sizes, "answers": counts,
           "build_s": build_s, "peak_gib": peak_gib()})
     return kb
+
+
+def phase_quickstart():
+    """examples/quickstart_torch.py on the card, and the N-Triples parser
+    at LUBM-1: the writer's text parsed back, timed, and built."""
+    import importlib.util
+
+    import torch
+    from repro_torch.core.engine import KnowledgeBase
+    from repro_torch.rdf.generator import generate_lubm
+    from repro_torch.rdf.parser import parse_ntriples, write_ntriples
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    t0 = time.perf_counter()
+    answers = qs.run(verbose=False)
+    example_s = time.perf_counter() - t0
+    for mode, names in answers.items():
+        require(names == ["<http://ex/bernd>", "<http://ex/hubert>"],
+                f"quickstart {mode}: {names}, expected bernd and hubert")
+
+    text = write_ntriples(generate_lubm(1, seed=0, keep_strings=True))
+    t0 = time.perf_counter()
+    ds, onto = parse_ntriples(text)
+    parse_s = time.perf_counter() - t0
+    require(ds.n_triples == LUBM1_SIZES["original"],
+            f"parsed {ds.n_triples} triples, wrote "
+            f"{LUBM1_SIZES['original']}")
+    # the writer renders the parsed triples back in order: the same set
+    require(write_ntriples(ds) == text,
+            "the parsed triples differ from the written ones")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kb = KnowledgeBase.build(ds)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(kb.device.type == "cuda", "the parsed store is not on the card")
+    emit({"phase": "quickstart", "answers": answers, "example_s": example_s,
+          "lines": text.count("\n"), "parse_s": parse_s,
+          "ontology": onto.stats(), "build_s": build_s, "sizes": kb.sizes()})
 
 
 def phase_lubm100():
@@ -1047,6 +1104,196 @@ def phase_lubm100_serving(kb, raw):
     out["seconds"] = time.perf_counter() - t_phase
     out["peak_gib"] = peak_gib()
     emit({"phase": "lubm100_serving", **out})
+
+
+def phase_lubm100_telemetry(kb, raw):
+    """Telemetry at LUBM-100 on the live store: the device-memory ledger
+    (sampled under the sync-debug mode "error"), the SLO loop driven by
+    hand (ok -> page -> ok), the rollup thread live under the insert
+    stream, and the trace and metrics exports."""
+    import threading
+
+    import torch
+    from repro_torch.launch.serve import insert_stream
+    from repro_torch.obs.aggregate import aggregate
+    from repro_torch.obs.export import (export_mergeable_metrics,
+                                        export_traces,
+                                        validate_metrics_snapshot,
+                                        validate_trace)
+    from repro_torch.obs.ledger import LEDGER
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving.runtime import ServingRuntime
+    from repro_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    out = {}
+    q4s = serving_families()["q4"]
+    q4 = q4s[0]
+
+    # -- 1. the ledger: the store and the runtime's snapshots; a sample is
+    # metadata only, so it runs with every device sync an error --
+    tracer = Tracer()
+    rt = ServingRuntime(kb, max_queue=32, tracer=tracer)
+    mon = rt.enable_slo_control(interval_s=60.0, fast_window=2,
+                                slow_window=4, min_events=4)
+    rt.start()
+    try:
+        require(rt.serve(q4).ok, "the warm-up Q4 request failed")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            s1 = LEDGER.sample()
+            sample_ms = (time.perf_counter() - t0) * 1e3
+            s2 = LEDGER.sample()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        allocated = torch.cuda.memory_allocated()
+        comps = s1["shards"]["0"]["components"]
+        stores = sum(t.nbytes for t in (kb.kb.spo, kb.lite_spo, kb.full_spo))
+        require(comps["base"] >= stores,
+                f"ledger base {comps['base']} B < the three stores' "
+                f"{stores} B")
+        require(s1["total_bytes"] <= allocated,
+                f"ledger total {s1['total_bytes']} B > memory_allocated "
+                f"{allocated} B")
+        require(s1["shards"]["0"]["triples"] == kb.n_live_triples(),
+                "ledger triples differ from the store's live triples")
+        require(s2["total_bytes"] == s1["total_bytes"],
+                "a second ledger sample gave other bytes")
+        out["ledger"] = {
+            "hbm_bytes": {sh: r["components"]
+                          for sh, r in s1["shards"].items()},
+            "live_triples": REGISTRY.gauge_value("store/live_triples",
+                                                 shard="0"),
+            "bytes_per_triple": REGISTRY.gauge_value(
+                "store/bytes_per_triple"),
+            "total_bytes": s1["total_bytes"], "stores_bytes": stores,
+            "memory_allocated": allocated,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "sample_ms": sample_ms, "sync_debug_mode": "error"}
+
+        # -- 2. the SLO loop by hand: healthy, injected overload (every
+        # execute faults, 10 ms deadlines), healthy again --
+        tick = rt._slo_rollup.tick
+        b0, w0 = rt.admission_bound, rt.batch_window_s
+        legs, burns = {}, {}
+        t0 = time.perf_counter()
+        for _ in range(12):
+            require(rt.serve(q4).ok, "a healthy Q4 request failed")
+        tick(); tick()
+        require(mon.state == "ok", f"healthy traffic left SLO {mon.state}")
+        legs["ok_s"] = time.perf_counter() - t0
+        burns["ok"] = mon.detail
+        t0 = time.perf_counter()
+        with faults.inject() as inj:
+            inj.arm("serving.execute", times=0)
+            for _ in range(4):
+                for _ in range(10):
+                    rt.serve(q4, deadline_s=0.01)
+                tick()
+        legs["page_s"] = time.perf_counter() - t0
+        burns["page"] = mon.detail
+        require(mon.state == "page", f"overload left SLO {mon.state}")
+        paged = {"admission_bound": rt.admission_bound,
+                 "batch_window_s": rt.batch_window_s}
+        require(rt.admission_bound < b0 and rt.batch_window_s > w0,
+                f"page did not retune the knobs: {paged}")
+        t0 = time.perf_counter()
+        for _ in range(6):
+            for _ in range(8):
+                require(rt.serve(q4).ok, "a recovery Q4 request failed")
+            tick()
+        legs["recover_s"] = time.perf_counter() - t0
+        burns["recovered"] = mon.detail
+        require(mon.state == "ok", f"recovery left SLO {mon.state}")
+        require(rt.admission_bound == b0 and rt.batch_window_s == w0,
+                "recovery did not restore the knobs")
+    finally:
+        rt.stop()
+    trans = [t for t in tracer.finished_traces()
+             if t.root.name == "slo_transition"]
+    require(len(trans) >= 2, f"{len(trans)} slo_transition traces")
+    for t in trans:
+        errs = validate_trace(t.to_dict())
+        require(not errs, f"invalid slo_transition trace: {errs}")
+    out["slo"] = {
+        "transitions": [(t.root.attrs["frm"], t.root.attrs["to"],
+                         t.root.attrs["admission_bound"],
+                         t.root.attrs["batch_window_s"]) for t in trans],
+        "knobs": {"constructed": {"admission_bound": b0,
+                                  "batch_window_s": w0}, "page": paged},
+        "burn": burns, "leg_s": legs}
+
+    # -- 3. the rollup thread live: 2 workers, Q4-shaped requests in waves
+    # of four while launch/serve.py's 64-row insert stream writes --
+    rt2 = ServingRuntime(kb, n_workers=2)
+    rt2.enable_slo_control(interval_s=0.05)
+    roll = rt2._slo_rollup
+    ticks = [0]
+    raw_tick = roll.tick
+
+    def counted():
+        ticks[0] += 1
+        return raw_tick()
+
+    roll.tick = counted
+    outcomes = []
+    t0 = time.perf_counter()
+    with rt2:
+        stop = threading.Event()
+        w = insert_stream(rt2, raw, seed=1, stop=stop)
+        try:
+            while ((len(outcomes) < 64 or ticks[0] < 20)
+                   and time.perf_counter() - t0 < 60):
+                futs = [rt2.submit(q4s[(len(outcomes) + i) % len(q4s)])
+                        for i in range(4)]
+                outcomes += [f.result() for f in futs]
+        finally:
+            stop.set()
+            w.join()
+        rt2.compact()  # later phases read a delta-free store, as before
+    live_s = time.perf_counter() - t0
+    bad = sorted({o.status for o in outcomes if not o.ok})
+    require(not bad, f"rollup leg outcomes not ok: {bad}")
+    tick_errors = rt2.metrics.counter_value("rollup/tick_errors")
+    require(ticks[0] >= 20, f"the rollup thread ticked {ticks[0]} times")
+    require(tick_errors == 0, f"rollup/tick_errors = {tick_errors}")
+    out["rollup"] = {"ticks": ticks[0], "tick_errors": tick_errors,
+                     "requests": len(outcomes), "seconds": live_s,
+                     "updates": rt2.stats["updates"],
+                     "versions": len({o.version for o in outcomes}),
+                     "latency": {st: rt2.latency_stats(st)
+                                 for st in sorted({o.status
+                                                   for o in outcomes})},
+                     "slo_state": rt2._slo_monitor.state,
+                     "sizes": kb.sizes()}
+
+    # -- 4. exports: traces and both runtimes' mergeable metrics, valid
+    # alone and aggregated --
+    exp = ROOT / "build" / "telemetry"
+    exp.mkdir(parents=True, exist_ok=True)
+    n_traces = export_traces(tracer, str(exp / "traces.json"))
+    doc = json.loads((exp / "traces.json").read_text())
+    errs = [e for t in doc["traces"] for e in validate_trace(t)]
+    require(not errs, f"exported traces invalid: {errs[:3]}")
+    snaps = [export_mergeable_metrics(r.metrics, str(exp / f"m{i}.json"),
+                                      process=str(i))
+             for i, r in enumerate((rt, rt2))]
+    for i in range(2):
+        errs = validate_metrics_snapshot(
+            json.loads((exp / f"m{i}.json").read_text()))
+        require(not errs, f"exported metrics m{i} invalid: {errs[:3]}")
+    fleet = aggregate(snaps)
+    (exp / "fleet.json").write_text(json.dumps(fleet))
+    errs = validate_metrics_snapshot(fleet)
+    require(not errs, f"aggregated metrics invalid: {errs[:3]}")
+    out["export"] = {"dir": str(exp.relative_to(ROOT)), "traces": n_traces,
+                     "histograms": [len(sn["histograms"]) for sn in snaps],
+                     "fleet_schema": fleet["schema"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "lubm100_telemetry", **out})
 
 
 def _profile(fn, runs: int = 5) -> dict:
@@ -1850,6 +2097,7 @@ def main() -> int:
     kb1 = drive(launches, phase_lubm1,
                 need=("compact_mask", "masked_interval_compact", "pair_range",
                       "member_compact"))
+    drive(launches, phase_quickstart, need=("pass/compact", "member_compact"))
     kb100, raw = drive(launches, phase_lubm100,
                        need=("compact_mask", "merge_path",
                              "pass/merge_partitioned"))
@@ -1865,6 +2113,8 @@ def main() -> int:
     drive(launches, phase_lubm100_serving, kb100, raw,
           need=("compact_mask_batched", "masked_interval_compact_batched",
                 "member_compact_batched"))
+    drive(launches, phase_lubm100_telemetry, kb100, raw,
+          need=("compact_mask", "merge_path"))
     del raw
     phase_kernels(kb1, kb100, launches, small_cap, api)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

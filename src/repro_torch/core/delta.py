@@ -49,6 +49,7 @@ from repro_torch.core.index import (
     pow2_bucket as _pow2,
 )
 from repro_torch.kernels import ops
+from repro_torch.obs.ledger import tensor_record
 from repro_torch.obs.metrics import REGISTRY
 
 MODES = ("rewrite", "litemat", "full")  # raw / lite / full store names
@@ -397,6 +398,27 @@ class DeviceStoreCache:
         shape = (0, 3) if st.delta is None else tuple(st.delta.shape)
         return shape, st.cap
 
+    def device_buffers(self) -> list:
+        """Resident tensors as ledger records (``obs/ledger.py``).
+
+        Power-of-two delta buckets under ``delta``; liveness masks (delta,
+        privatized base, and the shared all-alive masks) under ``alive``.
+        Records are keyed by storage, so the ledger dedupes a mask a
+        snapshot still leases.  Walks existing state only; reads no
+        tensor's values.
+        """
+        out = []
+        with self._lock:
+            for st in self._states.values():
+                if st.delta is not None:
+                    out.append(tensor_record("delta", st.delta))
+                    out.append(tensor_record("alive", st.delta_alive))
+                if st.owns_alive:
+                    out.append(tensor_record("alive", st.base_alive))
+            for mask in self._ones.values():
+                out.append(tensor_record("alive", mask))
+        return out
+
 
 def _one_off_dev(view: "StoreView", key: str, base) -> DevStore:
     """Cacheless DevStore build (static views, stale views, tests)."""
@@ -554,6 +576,22 @@ class StoreView:
         out = [self.dev(k) for k in keys]
         if self.base_rows.device.type == "cuda":
             torch.cuda.synchronize(self.base_rows.device)
+        return out
+
+    def device_buffers(self) -> list:
+        """Tensors this view references, as ledger records: the base rows,
+        the base index's permutation rows, and the one-off
+        :class:`DevStore` memos (static views).  Cache-routed buffers are
+        reported by the owning :class:`DeviceStoreCache`."""
+        out = [tensor_record("base", self.base_rows)]
+        for p in list(self.base_index._perms.values()):
+            out.append(tensor_record("base", p.rows))
+        for ds in list(self._dev.values()):
+            out.append(tensor_record("base", ds.base))
+            out.append(tensor_record("alive", ds.base_alive))
+            if ds.delta is not None:
+                out.append(tensor_record("delta", ds.delta))
+                out.append(tensor_record("alive", ds.delta_alive))
         return out
 
     # -- combined range lookups ---------------------------------------------

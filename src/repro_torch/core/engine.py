@@ -32,6 +32,7 @@ CPU, and callers that want the CPU (the tests) say so with
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass, field
@@ -54,6 +55,7 @@ from repro_torch.core.update import (
     encode_delta, materialize_delta_mode, mention_rows, mentions_mask,
 )
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.ledger import LEDGER, tensor_record
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.rdf.generator import RawDataset
 from repro_torch.testing import faults
@@ -344,6 +346,40 @@ class KnowledgeBase:
         query pays after a mutation (``dev_cache(mode).stats`` counts the
         transfers)."""
         return self.view(mode).warm_device(keys)
+
+    # -- device resource accounting (obs/ledger.py feed) ---------------------
+    def device_buffers(self) -> list:
+        """Every tensor this store references, as ledger records.
+
+        Base store tensors and sorted permutations under ``base``, delta
+        buckets under ``delta``, liveness masks under ``alive``, the
+        ``DeviceTBox`` tables under ``tbox``; each record keyed by its
+        storage (``obs.ledger.tensor_record``), so the ledger dedupes a
+        permutation that is the store tensor itself, or a base a pinned
+        snapshot shares.  The rollup thread samples this while writers
+        run: it walks ``list`` copies of the dicts a writer replaces, and
+        never materializes a view, flushes a delta, or reads a tensor's
+        values (no device sync).
+        """
+        out = [tensor_record("base", t)
+               for t in (self.kb.spo, self.lite_spo, self.full_spo)]
+        for idx in list(self._base_indexes.values()):
+            for p in list(idx._perms.values()):
+                out.append(tensor_record("base", p.rows))
+        for cache in list(self._dev_caches.values()):
+            out.extend(cache.device_buffers())
+        for v in list(self._views.values()):
+            out.extend(v.device_buffers())
+        for f in dataclasses.fields(self.dtb):
+            t = getattr(self.dtb, f.name)
+            if isinstance(t, torch.Tensor):
+                out.append(tensor_record("tbox", t))
+        return out
+
+    def track_ledger(self, shard="0") -> None:
+        """Register with the process ledger (idempotent, weakly held)."""
+        if getattr(self, "_ledger_handle", None) is None:
+            self._ledger_handle = LEDGER.track(shard, self)
 
     def n_live_triples(self) -> int:
         """Live triples in the served (litemat) store, side-effect-free

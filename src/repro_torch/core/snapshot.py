@@ -29,8 +29,7 @@ pinning is cheap: no new plan bodies, no buffer copies, just refcounts.
 
 One store only: a sharded knowledge base (``hasattr(kb, "shards")``) is
 refused with an error naming port slice 6, which brings the sharded
-store.  The ledger's ``device_buffers`` feed waits for the telemetry
-slice (slice 5).
+store.
 """
 from __future__ import annotations
 
@@ -118,6 +117,18 @@ class Snapshot:
         rows, _ = self.query(patterns, select=select, mode=mode)
         return {tuple(r) for r in rows.tolist()}
 
+    def device_buffers(self) -> list:
+        """Tensors this snapshot's pinned views keep alive, as ledger
+        records under the ``snapshot`` component: after a compaction the
+        live store swaps to fresh tensors, and whatever a pinned version
+        still references (superseded bases, leased masks) is memory
+        retained by MVCC.  Records are keyed by storage, so the ledger
+        dedupes them against the live store's own when it registers
+        first."""
+        return [("snapshot", key, nbytes)
+                for v in self.views.values()
+                for _comp, key, nbytes in v.device_buffers()]
+
     def store_rows(self, mode: str = None) -> np.ndarray:
         """Live rows at the pinned version (host)."""
         mode = self._check_mode(mode)
@@ -198,6 +209,7 @@ class SnapshotRegistry:
         self._published: Snapshot | None = None
         self._plan_caches: dict = {}  # shared across snapshots
         self._selectivity: dict = {}  # PatternSig -> observed, ditto
+        self._bytes_versions: set = set()  # versions with a bytes gauge
 
     @property
     def stats(self) -> dict:
@@ -390,6 +402,39 @@ class SnapshotRegistry:
             self.metrics.histogram("snapshot/retire_s").observe(
                 time.perf_counter() - t0)
         return dropped
+
+    def device_buffers(self) -> list:
+        """Ledger feed: tensors retained by live snapshot versions.
+
+        Deduped across versions here (two snapshots of nearby versions
+        share almost every tensor); deduped against the live store by the
+        ledger's global pass.  Also publishes per-version
+        ``snapshot/retained_bytes{version=}`` gauges into this registry's
+        metrics, zeroing versions retired since the last walk.
+        Pull-based: runs only when the ledger samples, never on the pin
+        fast path.
+        """
+        with self._lock:
+            snaps = sorted(self._snaps.items())
+        out = []
+        seen: set = set()
+        published: set = set()
+        for version, snap in snaps:
+            retained = 0
+            for comp, key, nbytes in snap.device_buffers():
+                if key in seen:
+                    continue
+                seen.add(key)
+                out.append((comp, key, nbytes))
+                retained += int(nbytes)
+            self.metrics.gauge("snapshot/retained_bytes",
+                               version=version).set(retained)
+            published.add(version)
+        for version in self._bytes_versions - published:
+            self.metrics.gauge("snapshot/retained_bytes",
+                               version=version).set(0)
+        self._bytes_versions = published
+        return out
 
     def live_versions(self) -> list:
         with self._lock:

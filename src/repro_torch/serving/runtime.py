@@ -62,9 +62,13 @@ stale-degradation events; batched members get ``batched=True`` +
 trace.  ``Outcome.latency_s`` splits into ``queue_s`` (admission-queue
 wait) + ``exec_s`` (service time); the two always sum to ``latency_s``.
 
-The SLO control plane (burn-rate monitor retuning ``admission_bound`` and
-``batch_window_s``) comes with the telemetry slice of the port (slice 5);
-until then both keep their constructor values.
+SLO control plane: :meth:`ServingRuntime.enable_slo_control` closes the
+loop — a :class:`~repro_torch.obs.slo.TelemetryRollup` thread turns the
+runtime's counters into rates and windows, samples the device-memory
+ledger, and feeds an :class:`~repro_torch.obs.slo.SLOMonitor` whose
+burn-rate transitions lower ``admission_bound`` and widen
+``batch_window_s`` under sustained budget burn, and restore both on
+recovery.
 """
 from __future__ import annotations
 
@@ -78,7 +82,10 @@ import numpy as np
 
 from repro_torch.core.snapshot import SnapshotRegistry
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.ledger import LEDGER
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.slo import (SLOMonitor, TelemetryRollup,
+                                 default_serving_slos)
 from repro_torch.testing import faults
 from repro_torch.testing.faults import FaultError
 
@@ -182,10 +189,14 @@ class ServingRuntime:
         self.max_batch = max_batch
         self.server_topk = server_topk
         self.max_queue = max_queue
-        # soft admission bound: the queue's hard capacity never changes;
-        # the SLO control plane (port slice 5, telemetry) lowers this to
-        # shed earlier under sustained budget burn
+        # SLO-driven soft admission bound: the queue's hard capacity never
+        # changes, but the burn-rate monitor can lower this to shed
+        # earlier under sustained budget burn (enable_slo_control)
         self.admission_bound = max_queue
+        self._batch_window_s0 = batch_window_s
+        self._slo_state = "ok"
+        self._slo_monitor = None
+        self._slo_rollup = None
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
         self._workers: list = []
         self._started = False
@@ -228,6 +239,8 @@ class ServingRuntime:
                                      name=f"serve-worker-{i}", daemon=True)
                 t.start()
                 self._workers.append(t)
+        if self._slo_rollup is not None:
+            self._slo_rollup.start()
         return self
 
     def stop(self) -> None:
@@ -236,6 +249,8 @@ class ServingRuntime:
                 return
             workers, self._workers = self._workers, []
             self._started = False
+        if self._slo_rollup is not None:
+            self._slo_rollup.stop()
         for _ in workers:
             self._queue.put(_STOP)
         for t in workers:
@@ -246,6 +261,96 @@ class ServingRuntime:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+    # -- SLO control plane ---------------------------------------------------
+    def enable_slo_control(self, slos=None, interval_s: float = 0.25,
+                           fast_window: int = 3, slow_window: int = 12,
+                           warn_burn: float = 1.0, page_burn: float = 2.0,
+                           min_events: int = 8, track_ledger: bool = True):
+        """Close the telemetry loop: rollup thread + burn-rate monitor
+        driving this runtime's admission bound and batch window.
+
+        Builds a :class:`~repro_torch.obs.slo.TelemetryRollup` over
+        ``self.metrics`` (sampling the process ledger each tick) and an
+        :class:`~repro_torch.obs.slo.SLOMonitor` whose overall-state
+        transitions call :meth:`_apply_slo_state`:
+
+          * ``warn`` — admission bound halves, batch window >= 1 ms
+            (bigger batches amortize dispatches under pressure);
+          * ``page`` — admission bound quarters (floor 4): sustained
+            budget burn sheds load at submit time, before execution cost;
+          * ``ok`` — both knobs restore to their constructor values.
+
+        The rollup thread starts/stops with the runtime; returns the
+        monitor (``monitor.detail`` carries per-SLO burn rates).  Call
+        ``self._slo_rollup.tick()`` to drive the loop synchronously
+        (tests, benches).
+        """
+        if self._slo_monitor is not None:
+            return self._slo_monitor
+        ledger = None
+        if track_ledger:
+            self.kb.track_ledger()
+            if getattr(self.registry, "_ledger_handle", None) is None:
+                self.registry._ledger_handle = LEDGER.track(
+                    "snapshots", self.registry)
+            ledger = LEDGER
+        monitor = SLOMonitor(
+            slos if slos is not None else default_serving_slos(),
+            fast_window=fast_window, slow_window=slow_window,
+            warn_burn=warn_burn, page_burn=page_burn,
+            min_events=min_events, registry=self.metrics)
+        monitor.on_transition(self._apply_slo_state)
+        self._slo_monitor = monitor
+        self._slo_rollup = TelemetryRollup(
+            self.metrics, interval_s=interval_s, ledger=ledger,
+            monitor=monitor)
+        if self._started:
+            self._slo_rollup.start()
+        return monitor
+
+    def _apply_slo_state(self, state: str, detail=None) -> None:
+        """Monitor-transition callback: retune admission + batching knobs.
+
+        Runs on the rollup thread.  The ``slo.apply`` fault site lets the
+        harness fail the CONTROL plane: a faulted apply keeps the previous
+        knobs (the data plane keeps serving) and the next transition
+        retries.  Every applied transition lands as a counter, gauge
+        updates, and — when the runtime traces — a single-span
+        ``slo_transition`` trace, so the timeline of the control loop is
+        reconstructable from the trace export alone.
+        """
+        prev = self._slo_state
+        try:
+            faults.fire("slo.apply", state=state)
+        except FaultError as e:
+            self.metrics.counter("slo/apply_faults").inc()
+            obs_trace.event("slo_apply_fault", state=state,
+                            error=f"{type(e).__name__}: {e}")
+            return
+        if state == "page":
+            self.admission_bound = max(4, self.max_queue // 4)
+            self.batch_window_s = max(self._batch_window_s0, 0.002)
+        elif state == "warn":
+            self.admission_bound = max(8, self.max_queue // 2)
+            self.batch_window_s = max(self._batch_window_s0, 0.001)
+        else:
+            self.admission_bound = self.max_queue
+            self.batch_window_s = self._batch_window_s0
+        self._slo_state = state
+        self.metrics.counter("slo/applied", frm=prev, to=state).inc()
+        self.metrics.gauge("serving/admission_bound").set(
+            self.admission_bound)
+        self.metrics.gauge("serving/batch_window_s").set(
+            self.batch_window_s)
+        if self.tracer is not None:
+            tr = self.tracer.new_trace()
+            root = self.tracer.start_root(
+                tr, "slo_transition", frm=prev, to=state,
+                admission_bound=self.admission_bound,
+                batch_window_s=self.batch_window_s)
+            root.finish()
+            self.tracer.finish_trace(tr)
 
     # -- read path -----------------------------------------------------------
     def submit(self, patterns, select=None, mode: str | None = None,
