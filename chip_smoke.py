@@ -26,6 +26,20 @@ line:
   5. lubm100_rewrite — Q1–Q4 in rewrite mode at LUBM-100 (the member-
                 compaction kernel over the raw store), answer sets equal to
                 litemat's; cold time, medians of 5 warm runs, a profile;
+     lubm100_sharded — the store in 8 shards on the card (``ShardedKB``,
+                built from the same raw triples while the single store is
+                still the fresh build): Q1–Q4 in litemat, full and rewrite,
+                indexed and scan, equal row for row to the single store's
+                with the same ``select``, Q4 through the host fold and the
+                repartition combine; warm medians beside the single
+                store's; the sharded QueryServer loop (256 requests in
+                batches of 32, counts equal to the QueryServer's); pinned
+                sharded ``query_batch`` of the type family in litemat,
+                scan and rewrite (batched K1, K2, K4); the runtime, every
+                outcome ok; one ledger sample with every device sync an
+                error, every shard present; the live phase's insert, delete
+                and compaction, rows on their subject's shard and Q1–Q4
+                equal to a scratch build after each; the store freed;
   6. lubm100_live — the live store at LUBM-100: a 1% insert of a disjoint
                 university, a 0.1% delete, device compaction held bit for
                 bit against host compaction, compact(), then a small insert
@@ -90,7 +104,7 @@ line:
                 the ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–8 and read just after it (a
-                ``window`` line each), and the line sums the eight windows.
+                ``window`` line each), and the line sums the nine windows.
                 The scratch builds the checks compare against run with the
                 counters set back, so only the main path's launches count.
 
@@ -766,6 +780,235 @@ def phase_lubm100_live(kb, raw):
     out["peak_gib"] = peak_gib()
     emit({"phase": "lubm100_live", **out})
     return out["small_delta_cap"]
+
+
+def _pattern_vars(pats) -> tuple:
+    """A query's variables in order of appearance: the select both the
+    sharded and the single store answer in the same row order."""
+    return tuple(dict.fromkeys(v for p in pats for v in (p.s, p.p, p.o)
+                               if isinstance(v, str) and v.startswith("?")))
+
+
+SHARDS = 8  # shards of the sharded store, all on the one card
+
+
+def phase_lubm100_sharded(kb, raw):
+    """The sharded store at LUBM-100: 8 shards on the one card, held row
+    for row against the single store ``kb`` (the fresh build of ``raw``);
+    the sharded store is freed before the next phase."""
+    import gc
+
+    import torch
+
+    out = _sharded_checks(kb, raw)
+    gc.collect()  # the store and its engines refer to each other
+    torch.cuda.empty_cache()
+    emit({"phase": "lubm100_sharded", **out})
+
+
+def _sharded_checks(kb, raw) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.core.shard import ShardedKB, assert_partitioned
+    from repro_torch.core.snapshot import SnapshotRegistry
+    from repro_torch.launch.serve import serve_batches
+    from repro_torch.obs.ledger import LEDGER
+    from repro_torch.rdf.generator import RawDataset, generate_lubm
+    from repro_torch.serving.engine import QueryServer
+    from repro_torch.serving.runtime import ServingRuntime
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    S = ShardedKB.build(raw, n_shards=SHARDS)
+    torch.cuda.synchronize()
+    out = {"n_shards": SHARDS, "build_s": time.perf_counter() - t0,
+           "build_peak_gib": peak_gib(), "sizes": S.sizes(),
+           "shard_rows": [K.sizes() for K in S.shards]}
+    require(S.sizes()["original"] == kb.sizes()["original"],
+            "the shards do not hold the raw store")
+
+    # 1. Q1–Q4 x three modes x indexed/scan: row for row the single
+    # store's, same select; Q4 through the repartition combine too
+    t0 = time.perf_counter()
+    answers = {}
+    for mode in ("litemat", "full", "rewrite"):
+        for use_index in (True, False):
+            for q, pats in PAPER_QUERIES.items():
+                key = f"{q}/{mode}/{'index' if use_index else 'scan'}"
+                sel = _pattern_vars(pats)
+                with uncounted():  # the single store is the check's
+                    want, _ = kb.query(pats, select=sel, mode=mode,
+                                       use_index=use_index)
+                got, _ = S.query(pats, select=sel, mode=mode,
+                                 use_index=use_index)
+                require(np.array_equal(got, want),
+                        f"sharded {key}: {got.shape[0]} rows, the single "
+                        f"store {want.shape[0]}")
+                answers[key] = int(got.shape[0])
+        eng = S.engine(mode)
+        eng.use_repartition_join = True
+        q4 = PAPER_QUERIES["Q4"]
+        host, _ = S.query(q4, select=_pattern_vars(q4), mode=mode)
+        got, _ = eng.run(q4, select=_pattern_vars(q4))
+        require(np.array_equal(got, host) and eng.cache_stats[
+                "repartition_runs"] > 0 and eng.cache_stats[
+                "exchange_faults"] == 0,
+                f"Q4/{mode}: the repartition combine differs from the "
+                f"host fold")
+        eng.use_repartition_join = False
+    out["answers"] = answers
+    out["cold_s"] = time.perf_counter() - t0
+
+    # 2. medians of 5 warm runs beside the single store's
+    medians = {}
+    for mode, use_index in (("litemat", True), ("litemat", False),
+                            ("rewrite", True)):
+        tag = f"{mode}/{'index' if use_index else 'scan'}"
+        with uncounted():
+            one = kb.engine(mode, use_index)
+        sharded = S.engine(mode, use_index)
+        for q, pats in PAPER_QUERIES.items():
+            sel = _pattern_vars(pats)
+            with uncounted():
+                single = _median_ms(lambda: one.run(pats, select=sel))
+            medians[f"{q}/{tag}"] = {
+                "single": single,
+                "sharded": _median_ms(lambda: sharded.run(pats, select=sel))}
+    eng = S.engine("litemat")
+    eng.use_repartition_join = True
+    q4 = PAPER_QUERIES["Q4"]
+    medians["Q4/litemat/index"]["sharded_repartition"] = _median_ms(
+        lambda: eng.run(q4, select=_pattern_vars(q4)))
+    eng.use_repartition_join = False
+    out["median_ms"] = medians
+    with uncounted():
+        single = launches_of(lambda: kb.query(q4, select=_pattern_vars(q4)))
+    out["launches_q4"] = {
+        "single": single,
+        "sharded": launches_of(lambda: S.query(q4, select=_pattern_vars(q4)))}
+    require(any(out["launches_q4"]["sharded"].get(k, 0) for k in (
+        "merge_path", "merge_path_resident")),
+        f"the sharded Q4 never launched the merge-path kernel: "
+        f"{out['launches_q4']['sharded']}")
+    out["profile"] = {"Q4/litemat/index": _profile(
+        lambda: S.query(q4, select=_pattern_vars(q4)))}
+
+    # 3. the sharded QueryServer loop: counts equal the single store's
+    srv = serve_batches(S, requests=256, batch=32, seed=0)
+    with uncounted():  # the single store's server is the check's
+        one = QueryServer(kb)
+        for names, props, counts in srv["log"]:
+            want = (one.class_members(names)[0] if props is None
+                    else one.class_prop_join(names, props)[0])
+            require(np.array_equal(counts, want),
+                    "ShardedQueryServer counts differ from the "
+                    "QueryServer's")
+    out["query_server"] = {k: srv[k] for k in ("served", "wall_s", "qps",
+                                                "p50_ms", "p99_ms")}
+
+    # 4. pinned sharded snapshots' query_batch: each member's groups ride
+    # one run_batch per shard (batched K1, K2 and K4 in litemat, scan and
+    # rewrite), rows equal to the single store's
+    batch = {}
+    reqs = [(q, ("?x",)) for q in serving_families()["type"]]
+    for mode, use_index in SERVING_MODES:
+        tag = f"{mode}/{'index' if use_index else 'scan'}"
+        reg = SnapshotRegistry(S, modes=(mode,), use_index=use_index)
+        with reg.pin() as pin:
+            got = pin.query_batch(reqs)
+            for (pats, sel), (rows, _) in zip(reqs, got):
+                with uncounted():
+                    want, _ = kb.query(pats, select=sel, mode=mode,
+                                       use_index=use_index)
+                require(np.array_equal(rows, want),
+                        f"sharded query_batch {tag} {pats[0].o}: rows "
+                        f"differ from the single store's")
+            batch[tag] = {
+                "members": len(reqs),
+                "batch_ms": _median_ms(lambda: pin.query_batch(reqs),
+                                       runs=3),
+                "solo_ms": _median_ms(lambda: [pin.query(p, select=sel)
+                                               for p, sel in reqs], runs=3)}
+    out["query_batch"] = batch
+
+    # 5. the runtime over the sharded store: every outcome ok
+    rt = ServingRuntime(S, modes=("litemat",), n_workers=2)
+    with rt:
+        outs = [rt.submit(q) for q in PAPER_QUERIES.values()]
+        outs = [f.result() for f in outs]
+        member = rt.class_members(["Professor", "Department"])
+    bad = [o.status for o in outs + [member] if not o.ok]
+    require(not bad, f"sharded runtime outcomes not ok: {bad}")
+    for o, (q, pats) in zip(outs, PAPER_QUERIES.items()):
+        require(len(o.answers) == answers[f"{q}/litemat/index"],
+                f"sharded runtime {q}: {len(o.answers)} answers")
+    out["runtime"] = {"stats": rt.stats, "latency": rt.latency_stats(),
+                      "server": type(rt._server).__name__}
+
+    # 6. one ledger sample with every device sync an error: every shard
+    S.track_ledger()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        sample = LEDGER.sample()
+        sample_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    shards = sample["shards"]
+    for i in range(SHARDS):
+        rec = shards.get(str(i), {})
+        require(rec.get("components", {}).get("base", 0) > 0
+                and rec.get("triples", 0) > 0,
+                f"the ledger misses shard {i}: {rec}")
+    require("stack" in shards, "the ledger misses the sharded store")
+    out["ledger"] = {"sample_ms": sample_ms,
+                     "bytes": {k: v["total"] for k, v in shards.items()},
+                     "triples": {k: v["triples"] for k, v in shards.items()}}
+
+    # 7. the live sharded store: the live phase's insert, delete and
+    # compaction; after each, rows on their subject's shard and Q1–Q4 equal
+    # to a scratch single build of the same triples
+    base = (raw.s, raw.p, raw.o)
+    chunk = raw.n_triples // 100
+    pool = generate_lubm(1, seed=7, univ_offset=1)
+    batch = tuple(c[:chunk] for c in (pool.s, pool.p, pool.o))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    out["insert"], out["insert_s"] = timed(
+        lambda: S.insert(RawDataset(*batch, onto=raw.onto),
+                         auto_compact=False))
+    assert_partitioned(S)
+    grown = tuple(np.concatenate([b, d]) for b, d in zip(base, batch))
+    out["answers_after_insert"] = _same_answers(S, grown, raw.onto,
+                                                "sharded, after insert")
+    n_del = raw.n_triples // 1000
+    idx = np.arange(0, raw.n_triples, raw.n_triples // n_del)[:n_del]
+    out["delete"], out["delete_s"] = timed(
+        lambda: S.delete(tuple(c[idx] for c in base), auto_compact=False))
+    require(out["delete"]["n_deleted"] >= n_del, f"delete: {out['delete']}")
+    assert_partitioned(S)
+    live = _drop_triples(grown, tuple(c[idx] for c in base))
+    out["answers_after_delete"] = _same_answers(S, live, raw.onto,
+                                                "sharded, after delete")
+    out["compact"], out["compact_s"] = timed(S.compact)
+    assert_partitioned(S)
+    out["answers_after_compact"] = _same_answers(S, live, raw.onto,
+                                                 "sharded, after compact")
+    window = read_counts()
+    require(window["merge_path"] + window["merge_path_resident"] > 0,
+            "the sharded phase never launched the merge-path kernel")
+    out["peak_gib"] = peak_gib()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def msc_groups(inst, conc, dtb):
@@ -2103,6 +2346,10 @@ def main() -> int:
                              "pass/merge_partitioned"))
     drive(launches, phase_lubm100_rewrite, kb100,
           need=("compact_mask", "member_compact"))
+    drive(launches, phase_lubm100_sharded, kb100, raw,
+          need=("compact_mask", "masked_interval_compact", "member_compact",
+                "compact_mask_batched", "masked_interval_compact_batched",
+                "member_compact_batched"))
     small_cap = drive(launches, phase_lubm100_live, kb100, raw,
                       need=("compact_mask", "member_compact", "pair_range",
                             "merge_path_resident", "merge_path"))

@@ -540,8 +540,13 @@ def _lexsort(cols):
     return perm
 
 
-def join(a: Relation, b: Relation, cap: int) -> Relation:
-    """Sort-merge equi-join on all shared vars (first var = sort key)."""
+def join(a: Relation, b: Relation, cap: int, a_sorted: bool = False) -> Relation:
+    """Sort-merge equi-join on all shared vars (first var = sort key).
+
+    ``a_sorted=True`` asserts the build side already sits in ascending
+    ``shared[0]`` order with invalid rows last (the shard combine hands
+    over exactly that from the merge-path fold), skipping its sort.
+    """
     shared = [v for v in a.vars if v in b.vars]
     if not shared:
         raise ValueError("cartesian products not supported — reorder the plan")
@@ -549,9 +554,12 @@ def join(a: Relation, b: Relation, cap: int) -> Relation:
 
     # sort build side (a) by key; invalid rows sink
     ka = torch.where(a.valid, a.col(key), INVALID)
-    aperm = torch.sort(ka, stable=True).indices
-    a_cols = a.cols[:, aperm]
-    ka_s = ka[aperm]
+    if a_sorted:
+        a_cols, ka_s = a.cols, ka
+    else:
+        aperm = torch.sort(ka, stable=True).indices
+        a_cols = a.cols[:, aperm]
+        ka_s = ka[aperm]
 
     kb_ = torch.where(b.valid, b.col(key), INVALID)
     L = torch.searchsorted(ka_s, kb_)

@@ -1,4 +1,4 @@
-"""Snapshot-isolated MVCC reads over a live KnowledgeBase.
+"""Snapshot-isolated MVCC reads over a live (Sharded)KnowledgeBase.
 
 ``KnowledgeBase.version`` is the MVCC hook — every mutation bumps it, and
 :class:`~repro_torch.core.delta.StoreView` objects are immutable snapshots
@@ -24,12 +24,12 @@ scatters could change a device buffer a long-running reader still reads.
     mid-flush crash), the reader is served the **last published** snapshot
     tagged ``stale=True`` instead of blocking or erroring.
 
-Query plans live in registry-level caches shared across snapshots, so
-pinning is cheap: no new plan bodies, no buffer copies, just refcounts.
-
-One store only: a sharded knowledge base (``hasattr(kb, "shards")``) is
-refused with an error naming port slice 6, which brings the sharded
-store.
+Snapshots work for both the single :class:`KnowledgeBase` and the
+:class:`~repro_torch.core.shard.ShardedKB` (per-shard views; queries run
+through a :class:`~repro_torch.core.shard.ShardedQueryEngine` over
+per-shard engines bound to them, the live store's loop and combine).  Query
+plans live in registry-level caches shared across snapshots, so pinning
+is cheap: no new plan bodies, no buffer copies, just refcounts.
 """
 from __future__ import annotations
 
@@ -40,27 +40,20 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.query import QueryEngine
+from repro_torch.core.shard import ShardedQueryEngine, is_sharded
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.testing import faults
-
-
-def _check_single(kb) -> None:
-    """Refuse a sharded knowledge base: its snapshots come with slice 6."""
-    if hasattr(kb, "shards"):
-        raise NotImplementedError(
-            "snapshots of a sharded knowledge base are not ported yet "
-            "(port slice 6: sharding)")
 
 
 @dataclass
 class Snapshot:
     """Immutable per-mode views of ONE published version, refcounted.
 
-    ``views[mode]`` is a StoreView.  Engines lazily attach to the pinned
-    views and share the registry's plan caches, so repeated pins of the
-    same version — and fresh pins after small mutations — reuse every plan
-    body.
+    ``views[mode]`` is a StoreView (single store) or a per-shard list
+    (ShardedKB).  Engines lazily attach to the pinned views and share the
+    registry's plan caches, so repeated pins of the same version — and
+    fresh pins after small mutations — reuse every plan body.
     """
 
     version: int
@@ -76,6 +69,10 @@ class Snapshot:
     _engines: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
+    @property
+    def sharded(self) -> bool:
+        return is_sharded(self.kb)
+
     def _check_mode(self, mode: str) -> str:
         mode = mode or self.modes[0]
         if mode not in self.views:
@@ -88,8 +85,10 @@ class Snapshot:
         return self._plan_caches.setdefault((mode, self.use_index), {})
 
     def engine(self, mode: str = None) -> QueryEngine:
-        """A QueryEngine bound to this snapshot's pinned view."""
+        """A QueryEngine bound to this snapshot's pinned view (single store)."""
         mode = self._check_mode(mode)
+        if self.sharded:
+            raise ValueError("sharded snapshots query per shard — use query()")
         with self._lock:
             eng = self._engines.get(mode)
             if eng is None:
@@ -102,15 +101,42 @@ class Snapshot:
                 self._engines[mode] = eng
             return eng
 
+    def _sharded_engine(self, mode: str) -> ShardedQueryEngine:
+        """The live store's ShardedQueryEngine over per-shard engines bound
+        to this snapshot's pinned views (sharded store)."""
+        with self._lock:
+            eng = self._engines.get(mode)
+            if eng is None:
+                cache = self._plan_cache(mode)
+                eng = ShardedQueryEngine(
+                    skb=self.kb, mode=mode, use_index=self.use_index,
+                    pinned=[QueryEngine(
+                        kb=K.kb, spo=v.base_rows, mode=mode, dtb=self.kb.dtb,
+                        use_index=self.use_index, view=v, _exec_cache=cache,
+                        observed_selectivity=self._selectivity)
+                        for K, v in zip(self.kb.shards, self.views[mode])])
+                self._engines[mode] = eng
+            return eng
+
     def query(self, patterns, select=None, mode: str = None):
         """Evaluate against the pinned version — never the live store."""
+        mode = self._check_mode(mode)
+        if self.sharded:
+            return self._sharded_engine(mode).run(patterns, select=select)
         return self.engine(mode).run(patterns, select=select)
 
     def query_batch(self, requests, mode: str = None):
         """Evaluate a batch of (patterns, select) requests at the pinned
-        version with shared plan bodies (the engine's
-        :meth:`~repro_torch.core.query.QueryEngine.run_batch`); returns
-        per-request (rows, sel)."""
+        version with shared plan bodies; returns per-request (rows, sel).
+
+        Single store: the engine's
+        :meth:`~repro_torch.core.query.QueryEngine.run_batch`.  Sharded:
+        :meth:`~repro_torch.core.shard.ShardedQueryEngine.run_batch`, every
+        member's groups riding one ``run_batch`` per shard.
+        """
+        mode = self._check_mode(mode)
+        if self.sharded:
+            return self._sharded_engine(mode).run_batch(requests)
         return self.engine(mode).run_batch(requests)
 
     def answers(self, patterns, select=None, mode: str = None) -> set:
@@ -126,12 +152,16 @@ class Snapshot:
         dedupes them against the live store's own when it registers
         first."""
         return [("snapshot", key, nbytes)
-                for v in self.views.values()
+                for views in self.views.values()
+                for v in (views if isinstance(views, list) else (views,))
                 for _comp, key, nbytes in v.device_buffers()]
 
     def store_rows(self, mode: str = None) -> np.ndarray:
-        """Live rows at the pinned version (host)."""
+        """Live rows at the pinned version (host; shards concatenated)."""
         mode = self._check_mode(mode)
+        if self.sharded:
+            return np.concatenate(
+                [np.asarray(v.live_rows()) for v in self.views[mode]])
         return np.asarray(self.views[mode].live_rows())
 
 
@@ -198,7 +228,6 @@ class SnapshotRegistry:
     def __init__(self, kb, modes=("litemat",), use_index: bool = True,
                  lock_timeout_s: float = 0.2,
                  metrics: MetricsRegistry | None = None):
-        _check_single(kb)
         self.kb = kb
         self.modes = tuple(modes)
         self.use_index = use_index
@@ -236,11 +265,20 @@ class SnapshotRegistry:
     # -- capture / publish ---------------------------------------------------
     def _capture(self) -> dict:
         """Build per-mode views at the current version (write lock held)."""
+        kb = self.kb
         views: dict = {}
         for mode in self.modes:
-            v = self.kb.view(mode)
-            v.pinned = True
-            views[mode] = v
+            if is_sharded(kb):
+                if mode in ("litemat", "full"):
+                    kb._flush(mode)
+                vs = [K.view(mode) for K in kb.shards]
+                for v in vs:
+                    v.pinned = True
+                views[mode] = vs
+            else:
+                v = kb.view(mode)
+                v.pinned = True
+                views[mode] = v
         return views
 
     def _publish_locked(self) -> Snapshot:

@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import PAPER_QUERIES, KnowledgeBase
+from repro_torch.core.shard import is_sharded
 from repro_torch.rdf.generator import generate_lubm
-from repro_torch.serving.engine import QueryServer
+from repro_torch.serving.engine import QueryServer, ShardedQueryServer
 from repro_torch.serving.runtime import ServingRuntime
 
 CLASSES = ["Professor", "Student", "Faculty", "Person", "Course",
@@ -93,8 +94,9 @@ def serve_batches(K, requests: int, batch: int, seed: int) -> dict:
     ``CLASSES`` x ``PROPS``.  Returns the requests with their answers, the
     throughput and the per-request p50/p99 (each batch's time over its
     size).  One request of each kind runs before the clock starts: it
-    builds the server's views (the type index, the sorted property view)."""
-    srv = QueryServer(K)
+    builds the server's views (the type index, the sorted property view).
+    A sharded store is served by ``ShardedQueryServer``."""
+    srv = (ShardedQueryServer if is_sharded(K) else QueryServer)(K)
     srv.class_members(CLASSES[:1])
     srv.class_prop_join(CLASSES[:1], PROPS[:1])
     rng = np.random.default_rng(seed)

@@ -24,9 +24,16 @@ at and rebuilds them when the store has changed.  ``invalidate()`` remains
 for the one case the counter cannot see: direct (out-of-API) mutation of a
 store field.
 
+:class:`ShardedQueryServer` serves the same plans over a
+:class:`~repro_torch.core.shard.ShardedKB`: every shard keeps its own type
+index and property view (class-membership subjects are co-hashed —
+derived ``(x rdf:type C)`` rows live on ``shard(x)`` — so per-shard
+distinct sets are DISJOINT), a batch runs once per shard, and the
+per-shard answers merge by summing distinct counts and merge-sorting the
+per-shard member lists.
+
 No kernel of the reference runs here: the batched plans are sorts,
-gathers and binary searches, so they are plain torch.  The sharded server
-comes with port slice 6 (sharding).
+gathers and binary searches, so they are plain torch.
 """
 from __future__ import annotations
 
@@ -80,7 +87,9 @@ def _serve_class_prop_join(subj_os, ps_sorted, p_sorted, ps_key, starts,
     store (``ps_key`` their int64 composite), so each sliced subject
     semi-joins with one binary search per property interval (primary +
     spills, usually 1): the first row >= (s, plo) matches iff its subject
-    is s and its predicate is still < phi.
+    is s and its predicate is still < phi.  A search past the last row
+    matches nothing (the reference clamps it onto the last row, which
+    answers a subject whose last property sorts below ``plo``).
     """
     hits = _slice_hits(subj_os, starts, lens, cap)
     hit = torch.zeros(hits.shape, dtype=torch.bool, device=hits.device)
@@ -89,7 +98,8 @@ def _serve_class_prop_join(subj_os, ps_sorted, p_sorted, ps_key, starts,
         x = torch.searchsorted(
             ps_key, pair_key(hits, plo[:, i:i + 1].expand_as(hits)))
         xc = x.clamp(0, n - 1)
-        hit = hit | ((ps_sorted[xc] == hits) & (p_sorted[xc] < phi[:, i:i + 1]))
+        hit = hit | ((x < n) & (ps_sorted[xc] == hits)
+                     & (p_sorted[xc] < phi[:, i:i + 1]))
     return _distinct_count_topk(torch.where(hit, hits, INVALID), topk)
 
 
@@ -150,15 +160,10 @@ class QueryServer:
         return self._views["type_os"]
 
     def _prop_view(self):
-        """Property triples sorted by (subject, predicate), on the device:
-        (subjects, predicates, their int64 composite keys)."""
+        """Property triples sorted by (subject, predicate), on the device."""
         if "prop" not in self._views:
-            spo = self._store()
-            m = spo[:, 1] != int(self.K.dtb.rdf_type_id)
-            s, p = spo[m, 0], spo[m, 1]
-            key = pair_key(s, p)
-            order = torch.sort(key, stable=True).indices
-            self._views["prop"] = (s[order], p[order], key[order])
+            self._views["prop"] = _prop_view(self._store(),
+                                             int(self.K.dtb.rdf_type_id))
         return self._views["prop"]
 
     def _intervals(self, names, enc):
@@ -185,18 +190,7 @@ class QueryServer:
         """Host-side index lookups: (starts, lens (B, k), capacity bucket)."""
         ti = self._type_index()
         clo, chi = self._intervals(class_names, self.K.kb.tbox.concepts)
-        starts = np.zeros(clo.shape, np.int64)
-        lens = np.zeros(clo.shape, np.int64)
-        for i in range(clo.shape[0]):
-            for j in range(clo.shape[1]):
-                starts[i, j], lens[i, j] = ti.range_of(int(clo[i, j]),
-                                                       int(chi[i, j]))
-        longest = max(int(lens.sum(axis=1).max()) if lens.size else 1,
-                      self.topk, 1)
-        cap = pow2_bucket(longest, floor=1)
-        dev = ti.subj.device
-        return (ti, torch.as_tensor(starts, device=dev),
-                torch.as_tensor(lens, device=dev), cap)
+        return (ti, *_index_ranges(ti, clo, chi, self.topk))
 
     def class_members(self, class_names):
         """Batch of Q1-style requests -> (distinct counts, member ids)."""
@@ -214,14 +208,148 @@ class QueryServer:
         REGISTRY.histogram("server/batch_size",
                            kind="prop_join").observe(len(class_names))
         ti, starts, lens, cap = self._ranges(class_names)
-        ps, pp, pkey = self._prop_view()
         plo, phi = self._intervals(prop_names, self.K.kb.tbox.properties)
-        dev = ti.subj.device
         counts, subs = _serve_class_prop_join(
-            ti.subj, ps, pp, pkey, starts, lens,
-            torch.as_tensor(plo, device=dev), torch.as_tensor(phi, device=dev),
-            cap, self.topk)
+            ti.subj, *self._prop_view(), starts, lens,
+            *_planes(ti, plo, phi), cap, self.topk)
         return counts.cpu().numpy(), subs.cpu().numpy()
 
 
-__all__ = ["QueryServer"]
+def _prop_view(spo: torch.Tensor, type_id: int):
+    """A store's property triples sorted by (subject, predicate):
+    (subjects, predicates, their int64 composite keys)."""
+    m = spo[:, 1] != type_id
+    s, p = spo[m, 0], spo[m, 1]
+    key = pair_key(s, p)
+    order = torch.sort(key, stable=True).indices
+    return s[order], p[order], key[order]
+
+
+def _index_ranges(ti: TypeIndex, clo, chi, topk: int):
+    """Host binary searches of (B, k) class intervals in one type index:
+    (starts, lens (B, k) on its device, capacity bucket)."""
+    starts = np.zeros(clo.shape, np.int64)
+    lens = np.zeros(clo.shape, np.int64)
+    for i in range(clo.shape[0]):
+        for j in range(clo.shape[1]):
+            starts[i, j], lens[i, j] = ti.range_of(int(clo[i, j]),
+                                                   int(chi[i, j]))
+    longest = max(int(lens.sum(axis=1).max()) if lens.size else 1, topk, 1)
+    dev = ti.subj.device
+    return (torch.as_tensor(starts, device=dev),
+            torch.as_tensor(lens, device=dev), pow2_bucket(longest, floor=1))
+
+
+def _planes(ti: TypeIndex, *arrs):
+    """Host arrays onto the type index's device."""
+    return tuple(torch.as_tensor(a, device=ti.subj.device) for a in arrs)
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving: per-shard plans + distinct-count merge
+# ---------------------------------------------------------------------------
+
+
+def _merge_members(members: torch.Tensor, topk: int) -> torch.Tensor:
+    """Merge per-shard ascending member lists [S, B, topk] into the global
+    smallest-topk [B, topk].
+
+    Subjects are co-hashed, so the per-shard distinct sets are disjoint and
+    a merge-sort of the per-shard topk lists IS the global topk.  ``-1``
+    padding maps through INVALID so it sorts last.
+    """
+    S, B, _ = members.shape
+    m = torch.where(members < 0, INVALID, members)
+    m = m.permute(1, 0, 2).reshape(B, -1)
+    m = torch.sort(m, dim=1).values[:, :topk]
+    return torch.where(m == INVALID, -1, m)
+
+
+@dataclass
+class ShardedQueryServer:
+    """Serve-batches facade over a ShardedKB.
+
+    The request/answer contract of :class:`QueryServer` — counts and
+    member lists equal the single store's — with the device work run per
+    shard: the batch's index ranges resolve against every shard's own type
+    index, the batched plan runs once per shard (a loop over the shards,
+    which all live on one device; each shard's planes stay unpadded), and
+    the per-shard answers merge by summing counts (disjoint distinct sets)
+    and merge-sorting member lists.
+    """
+
+    K: object  # ShardedKB
+    topk: int = 32
+    _views: dict = field(default_factory=dict)
+    _seen_version: int | None = field(default=None)
+
+    @property
+    def served_version(self) -> int | None:
+        """Store version the current views were (re)built at."""
+        return self._seen_version
+
+    def invalidate(self):
+        self._views.clear()
+        self._seen_version = self.K.version
+
+    def _sync(self):
+        """Atomic resync — same contract as :meth:`QueryServer._sync`."""
+        if self._seen_version == self.K.version:
+            return
+        with self.K.write_lock:
+            v = self.K.version
+            self._views.clear()
+            self._build_views()
+            self._seen_version = v
+
+    def _build_views(self):
+        """Every shard's (type index, property view) (write lock held)."""
+        self._shard_views()
+
+    def _shard_views(self) -> list:
+        if "shards" not in self._views:
+            self.K._flush("litemat")
+            tid = int(self.K.dtb.rdf_type_id)
+            views = []
+            for K in self.K.shards:
+                spo = K.store_rows("litemat")
+                views.append((TypeIndex.build(spo, tid), _prop_view(spo, tid)))
+            self._views["shards"] = views
+        return self._views["shards"]
+
+    _intervals = QueryServer._intervals  # same host-side interval resolution
+
+    def _fan(self, plan, class_names):
+        """Run ``plan`` on every shard; -> (summed counts, merged members)."""
+        clo, chi = self._intervals(class_names, self.K.kb.tbox.concepts)
+        counts, members = [], []
+        for ti, prop in self._shard_views():
+            starts, lens, cap = _index_ranges(ti, clo, chi, self.topk)
+            c, m = plan(ti, prop, starts, lens, cap)
+            counts.append(c)
+            members.append(m)
+        return (torch.stack(counts).sum(0, dtype=torch.int32).cpu().numpy(),
+                _merge_members(torch.stack(members), self.topk).cpu().numpy())
+
+    def class_members(self, class_names):
+        """Batched Q1: run per shard, sum counts, merge member lists."""
+        self._sync()
+        REGISTRY.histogram("server/batch_size",
+                           kind="members").observe(len(class_names))
+        return self._fan(
+            lambda ti, _prop, starts, lens, cap: _serve_class_members(
+                ti.subj, starts, lens, cap, self.topk), class_names)
+
+    def class_prop_join(self, class_names, prop_names):
+        """Batched Q3: the semi-join is fully shard-local (co-hashed x)."""
+        self._sync()
+        REGISTRY.histogram("server/batch_size",
+                           kind="prop_join").observe(len(class_names))
+        plo, phi = self._intervals(prop_names, self.K.kb.tbox.properties)
+        return self._fan(
+            lambda ti, prop, starts, lens, cap: _serve_class_prop_join(
+                ti.subj, *prop, starts, lens, *_planes(ti, plo, phi), cap,
+                self.topk), class_names)
+
+
+__all__ = ["QueryServer", "ShardedQueryServer"]

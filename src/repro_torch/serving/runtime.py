@@ -666,11 +666,15 @@ class ServingRuntime:
             pin.release()
 
     def _server_inst(self):
-        """Lazily build the QueryServer facade (server_lock held)."""
+        """Lazily build the (Sharded)QueryServer facade (server_lock held)."""
         if self._server is None:
-            from repro_torch.serving.engine import QueryServer
+            from repro_torch.core.shard import is_sharded
+            from repro_torch.serving.engine import (
+                QueryServer, ShardedQueryServer,
+            )
 
-            self._server = QueryServer(self.kb, topk=self.server_topk)
+            cls = ShardedQueryServer if is_sharded(self.kb) else QueryServer
+            self._server = cls(self.kb, topk=self.server_topk)
         return self._server
 
     def _server_call(self, kind: str, args: tuple):

@@ -238,11 +238,17 @@ def test_snapshot_store_rows_match_live(raw):
 
 
 def test_sharded_store_is_refused():
-    class Sharded:
-        shards = ()
+    """No longer refused: the registry pins a ShardedKB through per-shard
+    views, and a pin answers as the live store does."""
+    from repro_torch.core.shard import ShardedKB
 
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        SnapshotRegistry(Sharded())
+    raw = generate_random_abox(lubm_ontology(), n_instances=60,
+                               n_type_triples=60, n_prop_triples=90, seed=2)
+    S = ShardedKB.build(raw, n_shards=2, device="cpu")
+    with SnapshotRegistry(S).pin() as pin:
+        assert pin.snapshot.sharded
+        assert len(pin.snapshot.views["litemat"]) == 2
+        assert np.array_equal(pin.query(Q1)[0], S.query(Q1)[0])
 
 
 # -- the single-store legs of tests/test_faults.py ---------------------------
