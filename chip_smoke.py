@@ -40,6 +40,25 @@ line:
                 error, every shard present; the live phase's insert, delete
                 and compaction, rows on their subject's shard and Q1–Q4
                 equal to a scratch build after each; the store freed;
+     lubm100_sharded_devices — the device path: the store in shards
+                over every card (8 shards sharing the one card, the
+                sharded encode forced on; with several cards a shard per
+                card, the automatic rule), its ``devices`` and
+                ``shard_devices``: Q1–Q4 in litemat, full and rewrite
+                (indexed, and scan in litemat) equal row for row to the
+                single store's; Q4 through the device repartition equal to
+                the host fold, nothing re-uploaded; warm medians of the
+                device path beside the single store's and of Q4 through
+                both combines, each card's busy share of Q4 through each;
+                each card's launches in those queries (K1, K2, K4 and K5
+                or K6 on every card in use); the sharded server against
+                the QueryServer; the runtime's workers, every outcome ok;
+                the 1% batch's host and sharded encodes timed, alternated,
+                on copies of the dictionary; a 1% insert through the
+                sharded dictionary encode, Q1–Q4 equal in term space to a
+                scratch build; each card's peak memory; with two cards or
+                more the sharded path's kernels against their plain
+                versions on the last card; the store freed;
   6. lubm100_live — the live store at LUBM-100: a 1% insert of a disjoint
                 university, a 0.1% delete, device compaction held bit for
                 bit against host compaction, compact(), then a small insert
@@ -104,7 +123,8 @@ line:
                 the ``{"kernels": [...]}`` line with the launch
                 counts of the main path: every counter is zeroed just
                 before each of phases 3–8 and read just after it (a
-                ``window`` line each), and the line sums the nine windows.
+                ``window`` line each, with the launches per card), and the
+                line sums the ten windows.
                 The scratch builds the checks compare against run with the
                 counters set back, so only the main path's launches count.
 
@@ -372,11 +392,23 @@ def read_counts() -> dict:
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     for fn in _counters()[0].values():
         fn.launches = 0
     ops.reset_pass_counters()
+    build.DEVICE_LAUNCHES.clear()
+
+
+def device_counts() -> dict:
+    """The launches since the counters were last zeroed, per device:
+    {device index: {wrapper: launches}}."""
+    from repro_torch.kernels import build
+
+    out = {}
+    for (name, index), n in sorted(build.DEVICE_LAUNCHES.items()):
+        out.setdefault(index, {})[name] = n
+    return out
 
 
 def drive(total: dict, phase, *args, need=()):
@@ -387,7 +419,8 @@ def drive(total: dict, phase, *args, need=()):
     zero_counts()
     out = phase(*args)
     window = read_counts()
-    emit({"window": phase.__name__, "launches": window})
+    emit({"window": phase.__name__, "launches": window,
+          "by_device": device_counts()})
     for k in need:
         require(window[k] > 0, f"{phase.__name__} never launched {k}")
     for k, v in window.items():
@@ -399,13 +432,18 @@ def drive(total: dict, phase, *args, need=()):
 def uncounted():
     """Set every counter back to its value on entry when the block ends:
     what a check runs on the side is no launch of the main path."""
+    from repro_torch.kernels import build
+
     saved = read_counts()
+    saved_devices = dict(build.DEVICE_LAUNCHES)
     yield
     wrappers, passes = _counters()
     for name, fn in wrappers.items():
         fn.launches = saved[name]
     for k in passes:
         passes[k] = saved[f"pass/{k}"]
+    build.DEVICE_LAUNCHES.clear()
+    build.DEVICE_LAUNCHES.update(saved_devices)
 
 
 def _one_launch(name: str, fn, counter: str, kind,
@@ -789,7 +827,7 @@ def _pattern_vars(pats) -> tuple:
                                if isinstance(v, str) and v.startswith("?")))
 
 
-SHARDS = 8  # shards of the sharded store, all on the one card
+SHARDS = 8  # shards of a sharded store on one card
 
 
 def phase_lubm100_sharded(kb, raw):
@@ -1007,6 +1045,260 @@ def _sharded_checks(kb, raw) -> dict:
     require(window["merge_path"] + window["merge_path_resident"] > 0,
             "the sharded phase never launched the merge-path kernel")
     out["peak_gib"] = peak_gib()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_lubm100_sharded_devices(kb, raw):
+    """The device path at LUBM-100: the store in shards over every card
+    (8 shards sharing the one card; a shard per card with several),
+    held row for row against the single store ``kb`` (the fresh build of
+    ``raw``); the sharded store is freed before the next phase."""
+    import gc
+
+    import torch
+
+    out = _sharded_device_checks(kb, raw)
+    gc.collect()  # the store and its engines refer to each other
+    for d in _cards():
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    emit({"phase": "lubm100_sharded_devices", **out})
+
+
+def _cards() -> list:
+    """Every visible card, with its index."""
+    import torch
+
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _profile_devices(fn, runs: int = 5) -> dict:
+    """Each device's busy share over ``runs`` calls of ``fn``: the summed
+    self time of the device events the profiler gives that device, over
+    the wall time of the window; ``None`` for a device with no time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for d in _cards():
+        torch.cuda.synchronize(d)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        for d in _cards():
+            torch.cuda.synchronize(d)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            d = f"cuda:{e.device_index}"
+            busy[d] = busy.get(d, 0.0) + e.self_device_time_total
+    return {"wall_ms_per_run": wall_us / runs / 1e3,
+            "device_busy_share": {d: us / wall_us for d, us in
+                                  sorted(busy.items())} or None}
+
+
+def _sharded_device_checks(kb, raw) -> dict:
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.core.shard import (
+        ShardedKB, ShardedQueryEngine, assert_partitioned,
+    )
+    from repro_torch.core.update import encode_delta
+    from repro_torch.launch.serve import CLASSES, PROPS
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.rdf.generator import RawDataset, generate_lubm
+    from repro_torch.serving.engine import QueryServer, ShardedQueryServer
+    from repro_torch.serving.runtime import ServingRuntime
+    from repro_torch.testing.kernel_edges import sharded_path_edges
+
+    devices = _cards()
+    count = len(devices)
+    forced = count == 1  # 8 shards share the card; the encode is forced
+    n_shards = SHARDS if forced else count
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    t_phase = time.perf_counter()
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    S = ShardedKB.build(raw, n_shards=n_shards, devices=devices)
+    sync()
+    out = {"devices": [str(d) for d in S.devices],
+           "shard_devices": [str(d) for d in S.shard_devices()],
+           "n_shards": n_shards, "forced": forced,
+           "build_s": time.perf_counter() - t0,
+           "shard_rows": [K.sizes()["original"] for K in S.shards]}
+    require(S.sizes()["original"] == kb.sizes()["original"],
+            "the shards do not hold the raw store")
+    require(all(K.kb.spo.device == d
+                for K, d in zip(S.shards, S.shard_devices())),
+            "a shard's store is not on its device")
+
+    # 1. Q1–Q4 through the device path in three modes, indexed (and scan
+    # in litemat): row for row the single store's, same select
+    t0 = time.perf_counter()
+    answers = {}
+    for mode, use_index in (("litemat", True), ("full", True),
+                            ("rewrite", True), ("litemat", False)):
+        eng = S.engine(mode, use_index)
+        for q, pats in PAPER_QUERIES.items():
+            key = f"{q}/{mode}/{'index' if use_index else 'scan'}"
+            sel = _pattern_vars(pats)
+            with uncounted():  # the single store is the check's
+                want, _ = kb.query(pats, select=sel, mode=mode,
+                                   use_index=use_index)
+            got, _ = eng.run(pats, select=sel)
+            require(np.array_equal(got, want),
+                    f"device path {key}: {got.shape[0]} rows, the single "
+                    f"store {want.shape[0]}")
+            answers[key] = int(got.shape[0])
+    out["answers"] = answers
+    out["cold_s"] = time.perf_counter() - t0
+
+    # 2. Q4 through the device repartition: the host fold's rows, nothing
+    # re-uploaded, the group runs and the repartition counted
+    q4 = PAPER_QUERIES["Q4"]
+    sel4 = _pattern_vars(q4)
+    rep = ShardedQueryEngine(skb=S, use_repartition_join=True)
+    fold = ShardedQueryEngine(skb=S)
+    uploads = REGISTRY.counter("device/transfer_bytes", src="combine_upload")
+    stats0, up0 = dict(rep.cache_stats), uploads.value
+    got, _ = rep.run(q4, select=sel4)
+    uploaded = uploads.value - up0
+    require(uploaded == 0, f"Q4 through the device repartition uploaded "
+                           f"{uploaded} B")
+    host, _ = fold.run(q4, select=sel4)
+    require(np.array_equal(got, host), "Q4: the device repartition differs "
+                                       "from the host fold")
+    require(rep.cache_stats["group_runs"] > stats0["group_runs"]
+            and rep.cache_stats["repartition_runs"]
+            > stats0["repartition_runs"]
+            and rep.cache_stats["exchange_faults"] == 0,
+            f"Q4 did not take the device repartition: {rep.cache_stats}")
+    out["q4"] = {"rows": int(got.shape[0]), "combine_upload_bytes": uploaded,
+                 "cache_stats": dict(rep.cache_stats)}
+
+    # 3. warm medians: the device path against the single store, in the
+    # same run (the single store uncounted); Q4 through both combines
+    medians = {}
+    for q, pats in PAPER_QUERIES.items():
+        sel = _pattern_vars(pats)
+        eng = S.engine("litemat")
+        with uncounted():
+            one = _median_ms(lambda: kb.query(pats, select=sel))
+        medians[f"{q}/litemat/index"] = {
+            "device": _median_ms(lambda: eng.run(pats, select=sel)),
+            "single": one}
+    medians["Q4/litemat/index"]["device_repartition"] = _median_ms(
+        lambda: rep.run(q4, select=sel4))
+    out["median_ms"] = medians
+    out["profile_q4"] = {
+        "host_fold": _profile_devices(lambda: fold.run(q4, select=sel4)),
+        "repartition": _profile_devices(lambda: rep.run(q4, select=sel4))}
+    # every card in use launched K1, K2, K4 and K5 or K6 in the queries
+    # above: only the device path has run since the counts were zeroed
+    launches = device_counts()
+    for d in S.devices:
+        mine = launches.get(d.index, {})
+        for k in ("compact_mask", "masked_interval_compact",
+                  "member_compact"):
+            require(mine.get(k, 0) > 0, f"{d} never launched {k}")
+        require(mine.get("merge_path", 0) + mine.get(
+            "merge_path_resident", 0) > 0, f"{d} never launched K5 or K6")
+    out["query_launches_by_device"] = {f"cuda:{i}": v
+                                       for i, v in launches.items()}
+
+    # 4. the sharded server on the device path: the QueryServer's counts
+    srv = ShardedQueryServer(S)
+    names = [CLASSES[i % len(CLASSES)] for i in range(32)]
+    props = [PROPS[i % len(PROPS)] for i in range(32)]
+    with uncounted():
+        one = QueryServer(kb)
+        want = (one.class_members(names)[0],
+                one.class_prop_join(names, props)[0])
+    got = (srv.class_members(names)[0], srv.class_prop_join(names, props)[0])
+    require(all(np.array_equal(g, w) for g, w in zip(got, want)),
+            "the sharded server's device path differs from the QueryServer")
+
+    # 5. the runtime's workers over the store: every outcome ok
+    rt = ServingRuntime(S, modes=("litemat",), n_workers=2)
+    with rt:
+        outs = [f.result() for f in [rt.submit(p)
+                                     for p in PAPER_QUERIES.values()]]
+    bad = [o.status for o in outs if not o.ok]
+    require(not bad, f"runtime outcomes not ok: {bad}")
+    for o, q in zip(outs, PAPER_QUERIES):
+        require(len(o.answers) == answers[f"{q}/litemat/index"],
+                f"runtime {q}: {len(o.answers)} answers")
+
+    # 6. the 1% batch's encode both ways on copies of the dictionary,
+    # alternated: the host encode and the sharded encode
+    pool = generate_lubm(1, seed=7, univ_offset=1)
+    batch = tuple(c[:raw.n_triples // 100] for c in (pool.s, pool.p, pool.o))
+    dyn = S._dyn
+    enc_s = {"host": [], "sharded": []}
+    for _ in range(3):
+        for path in enc_s:
+            S._dyn = copy.deepcopy(dyn)
+            sync()
+            t0 = time.perf_counter()
+            if path == "host":
+                encode_delta(S._dyn, *batch)
+            else:
+                S._encode_sharded(*batch)
+            sync()
+            enc_s[path].append(time.perf_counter() - t0)
+    S._dyn = dyn
+    out["encode_s"] = enc_s
+
+    # 7. a 1% insert through the sharded dictionary encode: rows on their
+    # subject's shard, and Q1–Q4 in three modes equal, in term space, to a
+    # scratch single build (the host encode) of the same triples
+    S.use_sharded_encode = True if forced else None
+    require(S._sharded_encode_on(), "the sharded encode is off")
+    encodes = REGISTRY.counter("shard/encode_runs", path="sharded")
+    enc0 = encodes.value
+    sync()
+    t0 = time.perf_counter()
+    out["insert"] = S.insert(RawDataset(*batch, onto=raw.onto),
+                             auto_compact=False)
+    sync()
+    out["insert_s"] = time.perf_counter() - t0
+    require(encodes.value == enc0 + 1, "the insert took the host encode")
+    require(out["insert"]["n_new_terms"] > 0, "the insert added no term")
+    assert_partitioned(S)
+    grown = tuple(np.concatenate([b, d]) for b, d in
+                  zip((raw.s, raw.p, raw.o), batch))
+    out["answers_after_insert"] = _same_answers(
+        S, grown, raw.onto, "sharded encode, after insert")
+    out["peak_gib_by_device"] = {
+        str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in devices}
+
+    # 8. with two cards or more, the sharded path's kernels against their
+    # plain versions on the last card, the thread's device the first
+    if count > 1:
+        last = devices[-1]
+        torch.cuda.set_device(0)
+        with uncounted():
+            n_edges, names = 0, set()
+            for name, run, plain in sharded_path_edges(last):
+                _exact(f"{name} on {last}", run(), plain())
+                n_edges, names = n_edges + 1, names | {name}
+        require(torch.cuda.current_device() == 0,
+                "a launch left the thread on another card")
+        out["edges_on_last_device"] = {"device": str(last), "cases": n_edges,
+                                       "kernels": sorted(names)}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -1618,6 +1910,61 @@ def _row(name, source, replaces, launches, err, kernel, plain, library,
     return row
 
 
+def _entry_check_us(calls: dict, device, rounds: int = 21,
+                    iters: int = 100) -> dict:
+    """``build.Entry``'s device check (the thread's device read, and
+    switched to the tensors' card where it differs), against the launch
+    on the current stream of the tensors' device without it, as before
+    launches ran under their device.  ``preamble_us``: the host µs a call
+    of an entry whose C function is a no-op, each way, ``timeit`` over
+    200,000 calls, 5 alternations: the check alone.  Per wrapper in
+    ``calls``: ``host_us`` of ``rounds`` windows of ``iters`` calls each
+    way, the order swapped every round, in this one process, with the
+    median and quartiles of the per-round differences."""
+    import timeit
+
+    from repro_torch.kernels import build
+
+    shipped = build.Entry.__call__
+
+    def unchecked(self, device, *args):
+        err = self._fn(*args, build.stream(device))
+        if err:
+            raise RuntimeError(f"CUDA launch of {self.symbol} failed with "
+                               f"error {err}")
+
+    def swap(fn, checked: bool):
+        build.Entry.__call__ = shipped if checked else unchecked
+        try:
+            return fn()
+        finally:
+            build.Entry.__call__ = shipped
+
+    noop = build.Entry("noop", "noop", [])
+    noop._fn = lambda *args: 0
+    pre = {True: [], False: []}
+    for _ in range(5):
+        for checked in (True, False):
+            pre[checked].append(swap(lambda: timeit.timeit(
+                lambda: noop(device, 1, 2), number=200_000) / 0.2, checked))
+    out = {"preamble_us": {"shipped": min(pre[True]),
+                           "unchecked": min(pre[False]),
+                           "check": min(pre[True]) - min(pre[False])}}
+    for name, fn in calls.items():
+        times, diff = {True: [], False: []}, []
+        for r in range(rounds):
+            for checked in ((True, False) if r % 2 == 0 else (False, True)):
+                times[checked].append(swap(lambda: host_us(fn, iters=iters),
+                                           checked))
+            diff.append(times[True][-1] - times[False][-1])
+        q = statistics.quantiles(diff, n=4)
+        out[name] = {"shipped_us": statistics.median(times[True]),
+                     "unchecked_us": statistics.median(times[False]),
+                     "check_us": statistics.median(diff),
+                     "check_us_quartiles": [q[0], q[2]]}
+    return out
+
+
 def _searchsorted_ranges(tkey, qhi, qlo, valid):
     """``query._inl_ranges``' function in library calls: two
     ``torch.searchsorted`` over the int64 pair keys (the yardstick of the
@@ -1895,6 +2242,10 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
         lambda: ps.pair_search(t_hi, t_lo, qhi, qlo),
         lambda: ps.pair_search_plain(t_hi, t_lo, qhi, qlo),
         lambda: torch.searchsorted(tkey, qkey), 12 * Q + touched))
+    entry_check = _entry_check_us({
+        "compact_mask": lambda: sc.compact_mask(keep, cap),
+        "pair_search": lambda: ps.pair_search(t_hi, t_lo, qhi, qlo)},
+        keep.device)
     # K3 edges: tables of 1 row, 2,048 rows (all staged), 2,049, LUBM-1's
     # 137,457 and LUBM-100's 11.7M strided; probes below and above every
     # key, on table keys (duplicates), and qlo = INT32_MAX (+ 1 wraps)
@@ -2319,6 +2670,7 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
                      "closure_queries": nq, "closure_concepts": cids.numel(),
                      "closure_depth": D, "msc_groups": G, "msc_k": K},
           "member_compact_one_stream": member[1],
+          "entry_check_us": entry_check,
           "store_size_compaction": store_scan, "peak_gib": peak_gib()})
     for r in rows:
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
@@ -2350,6 +2702,9 @@ def main() -> int:
           need=("compact_mask", "masked_interval_compact", "member_compact",
                 "compact_mask_batched", "masked_interval_compact_batched",
                 "member_compact_batched"))
+    drive(launches, phase_lubm100_sharded_devices, kb100, raw,
+          need=("compact_mask", "masked_interval_compact", "member_compact",
+                "pair_range"))
     small_cap = drive(launches, phase_lubm100_live, kb100, raw,
                       need=("compact_mask", "member_compact", "pair_range",
                             "merge_path_resident", "merge_path"))

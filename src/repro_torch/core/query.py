@@ -1452,39 +1452,53 @@ class QueryEngine:
 
     def _run_planned(self, planned, max_retries: int = 6):
         """Execute an already-planned query, doubling capacities on overflow."""
-        (sigs, dyns, caps, join_cap, sel, stores, order, est,
-         buckets) = planned
-        slabel = sig_label(sigs)
+        planned = list(planned)
         for attempt in range(max_retries):
-            key = ("exec", self.mode, sigs, tuple(caps), join_cap, sel)
-            misses0 = self.cache_stats["misses"]
-            fn = self._executable(key, sigs, tuple(caps), join_cap, sel)
-            with obs_trace.span("dispatch",
-                                cached=self.cache_stats["misses"] == misses0,
-                                join_cap=join_cap) as dsp:
-                t0 = time.perf_counter()
-                cols, valid, overflow, totals = fn(stores, dyns)
-                done = int(overflow) == 0  # waits for the device
-                REGISTRY.histogram("query/exec_seconds", sig=slabel).observe(
-                    time.perf_counter() - t0)
-                dsp.set_attr(overflow=not done)
-            if done:
-                if attempt:
-                    REGISTRY.histogram("join/capacity_depth", site="query",
-                                       sig=slabel,
-                                       shard="local").observe(attempt)
-                self._record_observed(sigs, est, totals.tolist(), buckets)
-                n = int(valid.sum())
-                rows = cols[:, :n].T.cpu().numpy()
-                return rows, sel
-            obs_trace.event("overflow_retry", attempt=attempt,
-                            join_cap=join_cap)
-            REGISTRY.counter("query/overflow_retries").inc()
-            REGISTRY.counter("join/capacity_retry", site="query", sig=slabel,
-                             shard="local").inc()
-            join_cap *= 2
-            caps = [c * 2 for c in caps]
+            out = self._settle(planned, self._launch(planned), attempt)
+            if out is not None:
+                cols, valid, n = out
+                return cols[:, :n].T.cpu().numpy(), planned[4]
         raise RuntimeError("query kept overflowing its capacity buckets")
+
+    def _launch(self, planned):
+        """Enqueue one attempt of a planned query on the engine's device:
+        -> the attempt's pending outputs.  Nothing here waits on the
+        device, so a caller may enqueue several engines' attempts before
+        settling any (the sharded store's group runner)."""
+        sigs, dyns, caps, join_cap, sel, stores = planned[:6]
+        key = ("exec", self.mode, sigs, tuple(caps), join_cap, sel)
+        misses0 = self.cache_stats["misses"]
+        fn = self._executable(key, sigs, tuple(caps), join_cap, sel)
+        t0 = time.perf_counter()
+        return fn(stores, dyns), self.cache_stats["misses"] == misses0, t0
+
+    def _settle(self, planned, launched, attempt: int, shard: str = "local"):
+        """Read one launched attempt's outcome (one host read): -> ``(cols,
+        valid, n)`` on the device, or None after an overflow, with
+        ``planned``'s (a list) capacities doubled for the next attempt."""
+        (cols, valid, overflow, totals), cached, t0 = launched
+        sigs, join_cap = planned[0], planned[3]
+        slabel = sig_label(sigs)
+        with obs_trace.span("dispatch", cached=cached,
+                            join_cap=join_cap) as dsp:
+            read = torch.cat([overflow.reshape(1).long(), totals.long(),
+                              valid.sum().reshape(1)]).tolist()
+            REGISTRY.histogram("query/exec_seconds", sig=slabel).observe(
+                time.perf_counter() - t0)
+            dsp.set_attr(overflow=bool(read[0]))
+        if not read[0]:
+            if attempt:
+                REGISTRY.histogram("join/capacity_depth", site="query",
+                                   sig=slabel, shard=shard).observe(attempt)
+            self._record_observed(sigs, planned[7], read[1:-1], planned[8])
+            return cols, valid, read[-1]
+        obs_trace.event("overflow_retry", attempt=attempt, join_cap=join_cap)
+        REGISTRY.counter("query/overflow_retries").inc()
+        REGISTRY.counter("join/capacity_retry", site="query", sig=slabel,
+                         shard=shard).inc()
+        planned[2] = [c * 2 for c in planned[2]]
+        planned[3] = join_cap * 2
+        return None
 
     # -- micro-batched execution ---------------------------------------------
     def _batch_caps(self, planned_group):

@@ -1,4 +1,4 @@
-"""Sharded stores on one device: the ABox subject-hash partitioned.
+"""Sharded stores: the ABox subject-hash partitioned over devices.
 
 A :class:`ShardedKB` splits every ABox store across ``n_shards`` shards
 while replicating what makes RDFS inference shard-local:
@@ -29,18 +29,31 @@ object-keyed ``?y``) combine globally: the host fold gathers the
 per-shard relations, folds them key-sorted through the merge-path kernel
 (``ops.merge_gather``) and finishes with the presorted merge join and one
 distinct; the repartition combine bins both sides by a hash of the join
-key, swaps the bins on the shard axis and joins every shard's bins
-locally.  Rewrite-mode type patterns bind ``?x`` from BOTH endpoints
-(the range branch binds the object), so they are never co-hashed.
+key, exchanges the bins between the shards' devices and joins every
+shard's bins locally.  Rewrite-mode type patterns bind ``?x`` from BOTH
+endpoints (the range branch binds the object), so they are never
+co-hashed.
 
-All shards live on the one device the store was built on, and groups run
-through a per-shard dispatch loop: the reference's path whenever it has
-fewer devices than shards.  Its ``shard_map`` path (a device per shard,
-stacked buffers, collectives) and the device-parallel dictionary encode
-are not ported (port slice 6b): inserts always take the host encode.
+Placement
+---------
+Shard i lives on ``devices[i % n]`` (``shard_devices()``): by default
+every visible card, ``cuda:0`` .. ``cuda:{n-1}``; on the CPU the one
+``cpu``.  Each device in use holds a replica of the DeviceTBox and the
+term dictionary; ``devices[0]``, the home device, also holds the global
+encode and the host fold's merges.  Every build, write and query step of
+a shard runs with its device current (``_device_ctx``).
+
+A group runs on every routed shard at once: each shard's plan is made on
+the host, then every plan body is enqueued on its shard's device with no
+host sync between shards, and only then are the outcomes read.  Results
+stay on the devices for the repartition combine, whose bins cross
+devices through the all-to-all of core/exchange.py (copying nothing
+between shards that share a device).  Inserts take the sharded
+dictionary encode (core/dictionary.py) when it is on.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass, field
@@ -51,7 +64,10 @@ import torch
 from repro_torch.core.abox import EncodedKB, encode_obe, tbox_term_map
 from repro_torch.core.closure import full_materialize
 from repro_torch.core.delta import MODES
-from repro_torch.core.dictionary import table_from_host
+from repro_torch.core.dictionary import (
+    SENTINEL, sharded_dictionary_fn, table_from_host,
+)
+from repro_torch.core.exchange import all_to_all, device_ctx
 from repro_torch.core.engine import (
     PAPER_QUERIES, KnowledgeBase, _raw_columns, resolve_device,
 )
@@ -71,11 +87,10 @@ from repro_torch.obs.ledger import LEDGER
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.testing import faults
 from repro_torch.testing.faults import FaultCrash, FaultError
+from repro_torch.utils import pair64
 
 _EMPTY = np.zeros((0, 3), dtype=np.int32)
 _HASH_MULT = np.uint64(0x9E3779B1)  # Fibonacci multiplicative hash
-_NO_SHARD_MAP = ("the shard_map path (a device per shard) is not ported "
-                 "yet: it comes with port slice 6b")
 
 
 def shard_of(ids, n_shards: int) -> np.ndarray:
@@ -110,9 +125,36 @@ def _exchange(parts_by_src: list, n_shards: int) -> list:
     return [np.concatenate(o) if o else _EMPTY for o in outs]
 
 
-def _default_shards(device: torch.device) -> int:
-    """One shard per visible CUDA device; one on the CPU."""
-    return max(torch.cuda.device_count(), 1) if device.type == "cuda" else 1
+def _resolve_devices(devices=None, device=None) -> list:
+    """The store's distinct devices, CUDA ones with their index.
+
+    ``devices`` names them; else ``device`` names the one device every
+    shard shares; else every visible card, which must exist (as
+    ``engine.resolve_device``: CPU callers say so).
+    """
+    if devices is None:
+        home = resolve_device(device)  # None: CUDA, which must exist
+        devices = (range(torch.cuda.device_count())
+                   if device is None and home.type == "cuda" else [home])
+    out = []
+    for d in devices:
+        d = torch.device("cuda", d) if isinstance(d, int) else torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d not in out:
+            out.append(d)
+    if not out:
+        raise ValueError("a sharded store needs at least one device")
+    return out
+
+
+def _replica(obj, device: torch.device):
+    """A dataclass of tensors (DeviceTBox, TermTable) with every tensor on
+    ``device``; itself when it is already there."""
+    moved = {f.name: v.to(device) for f in dataclasses.fields(obj)
+             if isinstance(v := getattr(obj, f.name), torch.Tensor)
+             and v.device != device}
+    return dataclasses.replace(obj, **moved) if moved else obj
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +200,11 @@ class ShardedKB:
     the single store's row for row.
     """
 
-    shards: list  # per-shard KnowledgeBase, all on ``device``
-    dtb: DeviceTBox
+    shards: list  # per-shard KnowledgeBase, shard i on shard_devices()[i]
+    dtb: DeviceTBox  # the home device's replica
     n_shards: int
-    device: torch.device
+    device: torch.device  # the home device, devices[0]
+    devices: list = field(default_factory=list)  # distinct, in shard order
     compact_threshold: float = 0.25
     version: int = 0
     n_new_terms: int = 0
@@ -178,78 +221,102 @@ class ShardedKB:
     write_lock: threading.RLock = field(
         default_factory=threading.RLock, repr=False, compare=False)
     ingest_report: "IngestReport | None" = field(default=None, repr=False)
+    # the sharded dictionary encode (paper §III.B) for inserts: None is
+    # auto (a device per shard), True forces it, False keeps the host
+    # encode.  Ids then assign in hash-partitioned owner order, not global
+    # fp-rank order, so a built store keeps the host encode (its id-space
+    # parity with a single KnowledgeBase) and ``ingest`` takes auto
+    use_sharded_encode: bool | None = False
 
     # -- construction --------------------------------------------------------
     @classmethod
+    def _placed(cls, tbox: TBox, n_shards, devices: list, tables: tuple):
+        """A store without shards yet, placed on ``devices`` (resolved),
+        with one (DeviceTBox, dictionary tables) replica per device in use:
+        -> (store, per shard its device's replica)."""
+        n_shards = n_shards or len(devices)
+        dtb = DeviceTBox.build(tbox, device=devices[0])
+        skb = cls(shards=[], dtb=dtb, n_shards=n_shards, device=devices[0],
+                  devices=devices[:n_shards])
+        reps = {d: (_replica(dtb, d), tuple(_replica(t, d) for t in tables))
+                for d in skb.devices}
+        return skb, [reps[d] for d in skb.shard_devices()]
+
+    @classmethod
     def build(cls, raw, tbox: TBox | None = None, n_shards: int | None = None,
-              parallel_tbox: bool = False, device=None) -> "ShardedKB":
+              parallel_tbox: bool = False, device=None,
+              devices=None) -> "ShardedKB":
         """Encode + partition + per-shard materialize (with exchange).
 
-        The encode runs once for the whole dataset (ids equal the single
-        store's); the lite/full materializers then run per shard over that
-        shard's raw partition, and the derived rows are exchanged to THEIR
-        subject's shard.  Per-shard MSC may keep a concept alongside a
-        descendant another shard holds — answer-equivalent under interval
-        evaluation, the invariant the incremental insert relies on too.
+        The encode runs once for the whole dataset on the home device (ids
+        equal the single store's); the lite/full materializers then run per
+        shard over that shard's raw partition on its device, and the
+        derived rows are exchanged to THEIR subject's shard.  Per-shard MSC
+        may keep a concept alongside a descendant another shard holds —
+        answer-equivalent under interval evaluation, the invariant the
+        incremental insert relies on too.
         """
-        device = resolve_device(device)
+        devices = _resolve_devices(devices, device)
         tbox = tbox or build_tbox(raw.onto, parallel=parallel_tbox)
-        n_shards = n_shards or _default_shards(device)
-        kbg = encode_obe(raw, tbox, device=device)
-        dtb = DeviceTBox.build(tbox, device=device)
-        parts = partition_rows(kbg.spo.cpu().numpy(), n_shards)
+        kbg = encode_obe(raw, tbox, device=devices[0])
+        skb, reps = cls._placed(tbox, n_shards, devices, kbg.tables)
+        parts = partition_rows(kbg.spo.cpu().numpy(), skb.n_shards)
 
         lite_src, full_src, built = [], [], []
-        for part in parts:
-            kb_i = EncodedKB(
-                spo=torch.as_tensor(part, device=device), tables=kbg.tables,
-                tbox=tbox, n_instance_terms=kbg.n_instance_terms,
-                term_strings=kbg.term_strings)
-            if part.shape[0]:
-                lite, lv, lstats = lite_materialize(kb_i, dtb)
-                lite_src.append(compact_rows(lite, lv).cpu().numpy())
-                del lite, lv
-                full, fv, fstats = full_materialize(kb_i, dtb)
-                full_src.append(compact_rows(full, fv).cpu().numpy())
-                del full, fv
-            else:
-                lstats = fstats = {}
-                lite_src.append(_EMPTY)
-                full_src.append(_EMPTY)
+        for i, part in enumerate(parts):
+            dtb_i, tables_i = reps[i]
+            with skb._device_ctx(i):
+                kb_i = EncodedKB(
+                    spo=torch.as_tensor(part, device=skb.shard_device(i)),
+                    tables=tables_i, tbox=tbox,
+                    n_instance_terms=kbg.n_instance_terms,
+                    term_strings=kbg.term_strings)
+                if part.shape[0]:
+                    lite, lv, lstats = lite_materialize(kb_i, dtb_i)
+                    lite_src.append(compact_rows(lite, lv).cpu().numpy())
+                    del lite, lv
+                    full, fv, fstats = full_materialize(kb_i, dtb_i)
+                    full_src.append(compact_rows(full, fv).cpu().numpy())
+                    del full, fv
+                else:
+                    lstats = fstats = {}
+                    lite_src.append(_EMPTY)
+                    full_src.append(_EMPTY)
             built.append((kb_i, lstats, fstats))
-        lite_parts = _exchange(lite_src, n_shards)
-        full_parts = _exchange(full_src, n_shards)
-        shards = [
-            KnowledgeBase(
-                kb=kb_i, dtb=dtb,
-                lite_spo=torch.as_tensor(lite_parts[i], device=device),
-                full_spo=torch.as_tensor(full_parts[i], device=device),
-                lite_stats=lstats, full_stats=fstats)
-            for i, (kb_i, lstats, fstats) in enumerate(built)]
-        skb = cls(shards=shards, dtb=dtb, n_shards=n_shards, device=device)
+        lite_parts = _exchange(lite_src, skb.n_shards)
+        full_parts = _exchange(full_src, skb.n_shards)
+        for i, (kb_i, lstats, fstats) in enumerate(built):
+            d = skb.shard_device(i)
+            with skb._device_ctx(i):
+                skb.shards.append(KnowledgeBase(
+                    kb=kb_i, dtb=reps[i][0],
+                    lite_spo=torch.as_tensor(lite_parts[i], device=d),
+                    full_spo=torch.as_tensor(full_parts[i], device=d),
+                    lite_stats=lstats, full_stats=fstats))
         skb._share_dictionary(DynamicDictionary.from_kb(kbg))
         return skb
 
     @classmethod
-    def empty(cls, tbox: TBox, n_shards: int | None = None,
-              device=None) -> "ShardedKB":
+    def empty(cls, tbox: TBox, n_shards: int | None = None, device=None,
+              devices=None) -> "ShardedKB":
         """Shards over an empty ABox — the bulk-ingest starting point."""
-        device = resolve_device(device)
-        n_shards = n_shards or _default_shards(device)
+        devices = _resolve_devices(devices, device)
         fps, ids = tbox_term_map(tbox)
-        ttable = table_from_host(fps, ids, device=device)
-        dtb = DeviceTBox.build(tbox, device=device)
-        shards = []
-        for _ in range(n_shards):
-            kb_i = EncodedKB(spo=torch.as_tensor(_EMPTY, device=device),
-                             tables=(ttable,), tbox=tbox, n_instance_terms=0)
-            shards.append(KnowledgeBase(
-                kb=kb_i, dtb=dtb,
-                lite_spo=torch.as_tensor(_EMPTY, device=device),
-                full_spo=torch.as_tensor(_EMPTY, device=device),
-                lite_stats={}, full_stats={}))
-        skb = cls(shards=shards, dtb=dtb, n_shards=n_shards, device=device)
-        skb._share_dictionary(DynamicDictionary.from_kb(shards[0].kb))
+        skb, reps = cls._placed(
+            tbox, n_shards, devices,
+            (table_from_host(fps, ids, device=devices[0]),))
+        for i, (dtb_i, tables_i) in enumerate(reps):
+            d = skb.shard_device(i)
+            with skb._device_ctx(i):
+                kb_i = EncodedKB(spo=torch.as_tensor(_EMPTY, device=d),
+                                 tables=tables_i, tbox=tbox,
+                                 n_instance_terms=0)
+                skb.shards.append(KnowledgeBase(
+                    kb=kb_i, dtb=dtb_i,
+                    lite_spo=torch.as_tensor(_EMPTY, device=d),
+                    full_spo=torch.as_tensor(_EMPTY, device=d),
+                    lite_stats={}, full_stats={}))
+        skb._share_dictionary(DynamicDictionary.from_kb(skb.shards[0].kb))
         return skb
 
     def _share_dictionary(self, dyn: DynamicDictionary) -> None:
@@ -262,13 +329,16 @@ class ShardedKB:
     def ingest(cls, parts, tbox: TBox | None = None, onto=None,
                n_shards: int | None = None, max_part_retries: int = 3,
                backoff_s: float = 0.01, backoff_cap_s: float = 0.5,
-               seed: int = 0, device=None) -> "ShardedKB":
+               seed: int = 0, device=None, devices=None,
+               use_sharded_encode: bool | None = None) -> "ShardedKB":
         """Bulk-load an iterable of raw parts, never materializing globally.
 
         Each part (RawDataset or (s, p, o) fingerprint columns) is encoded
-        against the growing replicated dictionary, hash-partitioned by
-        subject, and appended to the per-shard raw logs; lite/full
-        derivation is lazy per mode AND per shard (``_flush``).
+        against the growing replicated dictionary — through the sharded
+        dictionary encode when it is on (``use_sharded_encode``: None is
+        auto, a device per shard) — hash-partitioned by subject, and
+        appended to the per-shard raw logs; lite/full derivation is lazy
+        per mode AND per shard (``_flush``).
 
         The loop is fault-tolerant: a part whose encode/partition fails
         transiently is retried up to ``max_part_retries`` times with
@@ -283,7 +353,9 @@ class ShardedKB:
             first = next(parts)
             tbox = build_tbox(onto or first.onto)
             parts = iter([first, *parts])
-        skb = cls.empty(tbox, n_shards=n_shards, device=device)
+        skb = cls.empty(tbox, n_shards=n_shards, device=device,
+                        devices=devices)
+        skb.use_sharded_encode = use_sharded_encode
         report = IngestReport()
         rng = np.random.default_rng(seed)
         for k, part in enumerate(parts):
@@ -325,15 +397,97 @@ class ShardedKB:
     def tbox(self) -> TBox:
         return self.kb.tbox
 
+    def shard_device(self, i: int) -> torch.device:
+        return self.devices[i % len(self.devices)]
+
+    def shard_devices(self) -> list:
+        """Shard i's device, for every shard: ``devices[i % n]``."""
+        return [self.shard_device(i) for i in range(self.n_shards)]
+
+    def _device_ctx(self, i: int):
+        """Shard i's device current on this thread for a block."""
+        return device_ctx(self.shard_device(i))
+
+    def device_per_shard(self) -> bool:
+        """Whether every shard has a device of its own (and there are
+        several): the automatic rule of the device path, the repartition
+        combine and the sharded encode."""
+        return len(self.devices) >= self.n_shards > 1
+
+    def _sharded_encode_on(self) -> bool:
+        if self.use_sharded_encode is not None:
+            return self.use_sharded_encode
+        return self.device_per_shard()
+
+    def _encode_sharded(self, s_fp, p_fp, o_fp):
+        """The sharded dictionary encode (the paper's §III.B) of a part.
+
+        Predicates validate against the host mirror (the TBox-fixed OBE
+        invariant ``encode_delta`` enforces); known s/o terms resolve by
+        one host lookup; the UNKNOWN tail goes through one
+        ``sharded_dictionary_fn`` pass over the shards' devices — hash-
+        partition to owner shards, per-owner unique + all-gathered prefix
+        sums of the counts as id ranges, reverse all-to-all — and the
+        assigned (fp, id) pairs splice back into the host mirror through
+        :meth:`DynamicDictionary.register`, so absorb, lookup and later
+        host encodes see exactly the same dictionary.
+        """
+        p_ids = self._dyn.lookup(p_fp)
+        bad = (p_ids < 0) | (p_ids >= self._dyn.instance_base)
+        if bad.any():
+            raise ValueError(
+                "delta contains predicates outside the TBox property map — "
+                "schema growth needs a re-encode (KnowledgeBase.build), the "
+                "incremental path only grows the ABox")
+        so_fp = np.concatenate([s_fp, o_fp])
+        so_ids = self._dyn.lookup(so_fp)
+        missing = so_ids < 0
+        n_new = 0
+        if missing.any():
+            hi, lo = pair64.split_np(so_fp[missing])
+            S, n = self.n_shards, hi.shape[0]
+            cap = _pow2(-(-n // S), floor=256)
+            hi_p = np.full(S * cap, SENTINEL, np.int32)
+            lo_p = np.full(S * cap, SENTINEL, np.int32)
+            valid = np.zeros(S * cap, bool)
+            hi_p[:n], lo_p[:n], valid[:n] = hi, lo, True
+            devs = self.shard_devices()
+
+            def cut(a):  # shard i's cap slots, on its device
+                return [torch.as_tensor(a[i * cap:(i + 1) * cap], device=d)
+                        for i, d in enumerate(devs)]
+
+            occ, tables, overflow, _ = sharded_dictionary_fn(
+                cut(hi_p), cut(lo_p), cut(valid), devs, cap, base=0)
+            if int(sum(int(o) for o in overflow)):
+                # a source shard holds at most cap occurrences and every
+                # bin holds cap slots, so this is unreachable; guard the
+                # invariant rather than silently dropping terms
+                raise RuntimeError("sharded encode owner bins overflowed")
+            base = self._dyn.next_id
+            occ = torch.cat([o.cpu() for o in occ]).numpy()[:n] + base
+            thi, tlo, tids = (torch.cat([t[k].cpu() for t in tables]).numpy()
+                              for k in range(3))
+            real = tids >= 0
+            fps_r = pair64.combine_np(thi[real], tlo[real])
+            ufp, uidx = np.unique(fps_r, return_index=True)
+            n_new = self._dyn.register(ufp, tids[real][uidx] + base)
+            so_ids = so_ids.copy()
+            so_ids[missing] = occ.astype(np.int32)
+        s_ids, o_ids = np.split(so_ids, 2)
+        spo = np.stack([s_ids, p_ids, o_ids], axis=1).astype(np.int32)
+        return spo, n_new
+
     def _absorb(self, strings=None) -> int:
-        """Fold freshly allocated dictionary terms into EVERY shard."""
+        """Fold freshly allocated dictionary terms into EVERY shard: one
+        table chunk per device in use, shared by its shards."""
         chunk = self._dyn.take_new_terms()
         if chunk is None:
             return 0
         fps, ids = chunk
-        tbl = table_from_host(fps, ids, device=self.device)
-        for K in self.shards:
-            K.kb.tables = (*K.kb.tables, tbl)
+        tbls = {d: table_from_host(fps, ids, device=d) for d in self.devices}
+        for i, K in enumerate(self.shards):
+            K.kb.tables = (*K.kb.tables, tbls[self.shard_device(i)])
             K.kb._merged = None
             K.kb.n_instance_terms += int(ids.shape[0])
         if strings:
@@ -348,8 +502,8 @@ class ShardedKB:
     def _flush(self, *modes: str) -> None:
         """Derive pending insert batches per shard, exchange, append.
 
-        Each shard's share of the backlog is materialized on its own
-        (row-local derivation), then the derived rows are exchanged to
+        Each shard's share of the backlog is materialized on that shard's
+        device (row-local derivation), then the derived rows are exchanged to
         their own subject's shard — range-derived type rows migrate,
         keeping the partition invariant.  Lazy per mode: a lite-only
         deployment never runs the full closure of its ingest.
@@ -379,8 +533,9 @@ class ShardedKB:
                             continue
                         faults.fire("shard.flush_mat", mode=mode, shard=i,
                                     batch=cur + b)
-                        derived_src.append(
-                            materialize_delta_mode(part, self.dtb, mode))
+                        with self._device_ctx(i):
+                            derived_src.append(materialize_delta_mode(
+                                part, self.shards[i].dtb, mode))
                     staged.append(_exchange(derived_src, self.n_shards))
                 derived_rows = 0
                 for exchanged in staged:
@@ -437,13 +592,19 @@ class ShardedKB:
             return dict(n_inserted=0, n_new_terms=0)
         with self.write_lock:
             faults.fire("shard.ingest_encode", n=int(s_fp.shape[0]))
-            spo, n_new = encode_delta(self._dyn, s_fp, p_fp, o_fp)
+            if self._sharded_encode_on():
+                spo, n_new = self._encode_sharded(s_fp, p_fp, o_fp)
+                REGISTRY.counter("shard/encode_runs", path="sharded").inc()
+            else:
+                spo, n_new = encode_delta(self._dyn, s_fp, p_fp, o_fp)
+                REGISTRY.counter("shard/encode_runs", path="host").inc()
             parts = partition_rows(spo, self.n_shards)
             # -- commit point: nothing below raises -------------------------
             self._absorb(strings)
             for i, part in enumerate(parts):
                 if part.shape[0]:
-                    self.shards[i].append_raw(part)
+                    with self._device_ctx(i):
+                        self.shards[i].append_raw(part)
                 self.shards[i]._bump()
             self._pending.append(parts)
             self.n_new_terms += n_new
@@ -479,7 +640,8 @@ class ShardedKB:
             deleted = []
             for i, part in enumerate(partition_rows(q, self.n_shards)):
                 if part.shape[0]:
-                    d = self.shards[i].kill_raw_rows(part)
+                    with self._device_ctx(i):
+                        d = self.shards[i].kill_raw_rows(part)
                     if d.shape[0]:
                         deleted.append(d)
             if not deleted:
@@ -488,16 +650,19 @@ class ShardedKB:
             inst = affected_instances(deleted, self.tbox.instance_base)
 
             frontier_src = []
-            for K in self.shards:
-                K.kill_derived_mentions(inst)
-                frontier_src.append(K.live_raw_mentions(inst))
+            for i, K in enumerate(self.shards):
+                with self._device_ctx(i):
+                    K.kill_derived_mentions(inst)
+                    frontier_src.append(K.live_raw_mentions(inst))
             for mode in ("litemat", "full"):
                 derived_src = []
-                for rows in frontier_src:
+                for i, rows in enumerate(frontier_src):
                     if rows.shape[0] == 0:
                         derived_src.append(_EMPTY)
                         continue
-                    derived = materialize_delta_mode(rows, self.dtb, mode)
+                    with self._device_ctx(i):
+                        derived = materialize_delta_mode(
+                            rows, self.shards[i].dtb, mode)
                     derived_src.append(derived[mentions_mask(derived, inst)])
                 for j, rows in enumerate(
                         _exchange(derived_src, self.n_shards)):
@@ -525,8 +690,9 @@ class ShardedKB:
                                 n_shards=self.n_shards):
                 self._flush("litemat", "full")
                 sizes = {m: 0 for m in MODES}
-                for K in self.shards:
-                    out = K.compact(device=device)
+                for i, K in enumerate(self.shards):
+                    with self._device_ctx(i):
+                        out = K.compact(device=device)
                     for m in MODES:
                         sizes[m] += int(out.get(m, 0))
                 self.version += 1
@@ -565,27 +731,35 @@ class ShardedKB:
         """Per-shard device warmup (the O(delta)-per-shard unit)."""
         if mode in ("litemat", "full"):
             self._flush(mode)
-        return [K.warm_device(mode, keys=keys) for K in self.shards]
+        out = []
+        for i, K in enumerate(self.shards):
+            with self._device_ctx(i):
+                out.append(K.warm_device(mode, keys=keys))
+        return out
 
     def store_rows(self, mode: str = "litemat") -> torch.Tensor:
-        """Live rows of one store, all shards concatenated (shard order)."""
+        """Live rows of one store, all shards concatenated (shard order),
+        on the home device."""
         if mode in ("litemat", "full"):
             self._flush(mode)
-        return torch.cat([K.store_rows(mode) for K in self.shards])
+        return torch.cat([K.store_rows(mode).to(self.device)
+                          for K in self.shards])
 
     # -- device resource accounting (obs/ledger.py feed) ---------------------
     def device_buffers(self) -> list:
         """The sharded engines' own device footprint beyond the per-shard
-        stores (which each shard's KnowledgeBase reports): the stacked
-        ``shard_map`` slabs, which the one-device dispatch loop never
-        builds, so the list is empty."""
+        stores (which each shard's KnowledgeBase reports, on its own
+        device): the reference's stacked ``shard_map`` slabs, which the
+        port never builds (each shard's own views and device caches are
+        the device path's inputs), so the list is empty."""
         return []
 
     def track_ledger(self) -> None:
         """Register with the process ledger: each shard's KnowledgeBase
         under its shard index (per-shard ``hbm_bytes{shard=i}`` and live
-        triples), plus this store under ``shard="stack"``.  Idempotent;
-        the ledger holds only weakrefs."""
+        triples; its records keyed by its own device's storages), plus
+        this store under ``shard="stack"``.  Idempotent; the ledger holds
+        only weakrefs."""
         if self._ledger_handles:
             return
         self._ledger_handles = [
@@ -782,7 +956,7 @@ def _group_vars(gpats) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# The repartition combine, single-device form
+# The repartition combine
 # ---------------------------------------------------------------------------
 
 
@@ -796,96 +970,107 @@ def _hash32(key: torch.Tensor) -> torch.Tensor:
 
 
 def _bin_by_key(cols: torch.Tensor, valid: torch.Tensor, key_idx: int,
-                n_shards: int) -> torch.Tensor:
+                n_shards: int):
     """Route one shard's relation rows to hash(join key) partitions.
 
-    ``cols`` int32[V, cap] / ``valid`` bool[cap] -> int32[S, cap, V] send
-    bins: bin t holds this shard's rows whose key hashes to t, ascending
-    by key, INVALID-padded.  A bin never overflows its ``cap`` slots — the
-    source shard holds at most ``cap`` rows in total — and invalid rows
-    route nowhere.
+    ``cols`` int32[V, cap] / ``valid`` bool[cap] -> (rows int32[cap, V],
+    counts int64[S]): the rows ordered by (target partition, key), so
+    partition t's rows are the ``counts[t]`` rows after those of the
+    partitions before it, ascending by key; invalid rows route nowhere
+    and sort last.
     """
-    n_vars, cap = cols.shape
     key = torch.where(valid, cols[key_idx], INVALID)
     tgt = torch.where(valid & (key != INVALID),
                       _hash32(key) % n_shards, n_shards)
     order = torch.sort(key, stable=True).indices  # (tgt, key) lex order
     order = order[torch.sort(tgt[order], stable=True).indices]
-    tgt_s = tgt[order]
-    rows_s = cols.T[order]
-    first = torch.searchsorted(
-        tgt_s, torch.arange(n_shards, dtype=torch.int64, device=cols.device))
-    slot = (torch.arange(cap, dtype=torch.int64, device=cols.device)
-            - first[tgt_s.clamp(0, n_shards - 1)])
-    idx = torch.where(tgt_s < n_shards, tgt_s * cap + slot, n_shards * cap)
-    flat = torch.full((n_shards * cap + 1, n_vars), INVALID,
-                      dtype=torch.int32, device=cols.device)
-    flat[idx] = rows_s  # slot S * cap catches the invalid rows
-    return flat[:-1].reshape(n_shards, cap, n_vars)
+    counts = torch.bincount(tgt, minlength=n_shards + 1)[:n_shards]
+    return cols.T[order], counts
 
 
-def _stack_parts(parts: list, n_vars: int, n_shards: int, device):
-    """Host result parts -> stacked [S, V, cap] device relation.
-
-    The repartition fold doesn't care how rows were distributed before the
-    exchange (bins are computed from the rows themselves), so parts slot
-    round-robin: the dispatch loop's entry into the device combine.
-    """
-    cap = _pow2(max((p.shape[0] for p in parts), default=1), floor=256)
-    cols = np.full((n_shards, n_vars, cap), INVALID, np.int32)
-    valid = np.zeros((n_shards, cap), bool)
-    for i, p in enumerate(parts):
-        j = i % n_shards
-        cols[j, :, :p.shape[0]] = p.T
-        valid[j, :p.shape[0]] = True
-    return (torch.as_tensor(cols, device=device),
-            torch.as_tensor(valid, device=device))
+def _split_bins(binned: list, home: torch.device) -> list:
+    """Per source shard its ``_bin_by_key`` output -> per source the list
+    of its bins, bin t holding exactly the rows bound for shard t: the
+    sources' counts come to the host in one read, so a bin carries no
+    padding across the exchange."""
+    counts = torch.stack([c.to(home, non_blocking=True)
+                          for _, c in binned]).tolist()
+    out = []
+    for (rows, _), cnt in zip(binned, counts):
+        ends = np.cumsum(cnt)
+        out.append([rows[e - c:e] for c, e in zip(cnt, ends.tolist())])
+    return out
 
 
-def _repartition_join(acc, rel, key, jcap: int):
-    """One hash-repartition join step over stacked relations.
+def _empty_relation(n_vars: int, device):
+    """A shard's relation that holds no row: one INVALID slot."""
+    return (torch.full((n_vars, 1), INVALID, dtype=torch.int32,
+                       device=device),
+            torch.zeros(1, dtype=torch.bool, device=device))
 
-    ``acc`` and ``rel`` are ``(vars, cols int32[S, V, cap], valid
-    bool[S, cap])``.  Both sides bin by hash(join key); the bins swap on
-    the shard axis (the all-to-all of a device per shard, done in place on
-    one device); then each shard folds its received key-sorted runs with
-    the balanced merge tree and runs the presorted merge join locally.
-    Matching rows co-hash, so the per-shard join outputs union to exactly
-    the global join.  Returns the stacked ``(vars, cols, valid)`` and the
-    per-shard overflow int32[S].
+
+def _padded(rows: torch.Tensor) -> torch.Tensor:
+    """A received relation's rows, one INVALID row where there are none:
+    a relation holds at least one slot."""
+    if rows.shape[0]:
+        return rows
+    return torch.full((1, rows.shape[1]), INVALID, dtype=torch.int32,
+                      device=rows.device)
+
+
+def _repartition_join(acc, rel, key, jcap: int, devices: list):
+    """One hash-repartition join step over per-shard relations.
+
+    ``acc`` and ``rel`` are ``(vars, [cols int32[V, cap_i]], [valid
+    bool[cap_i]])``, shard i's on ``devices[i]``.  Each shard bins both
+    sides by hash(join key) on its device; one host read of every bin's
+    row count sizes the bins; the bins cross to their destination shards
+    (core/exchange.py's all-to-all: peer copies between devices, none
+    between shards that share one); then each shard folds its received
+    key-sorted runs with the balanced merge tree and runs the presorted
+    merge join on its device.  Matching rows co-hash, so the per-shard
+    join outputs union to exactly the global join.  Returns the per-shard
+    ``(vars, [cols], [valid])`` and the per-shard overflow (int32 0-d
+    each, on its device).
     """
     (avars, ac, av), (rvars, rc, rv) = acc, rel
-    S = ac.shape[0]
+    S = len(devices)
     ai, ri = avars.index(key), rvars.index(key)
-    arecv = torch.stack([_bin_by_key(ac[i], av[i], ai, S)
-                         for i in range(S)]).transpose(0, 1)  # [dst, src]
-    rrecv = torch.stack([_bin_by_key(rc[i], rv[i], ri, S)
-                         for i in range(S)]).transpose(0, 1)
-    zero = torch.zeros((), dtype=torch.int32, device=ac.device)
+    binned = []
+    for i, d in enumerate(devices):
+        with device_ctx(d):
+            binned.append(_bin_by_key(ac[i], av[i], ai, S))
+            binned.append(_bin_by_key(rc[i], rv[i], ri, S))
+    bins = _split_bins(binned, devices[0])
+    arecv = all_to_all(bins[0::2], devices)
+    rrecv = all_to_all(bins[1::2], devices)
     outs = []
-    for i in range(S):
-        m = _merge_tree(list(rrecv[i]), ri)
-        af = arecv[i].reshape(-1, len(avars))
-        outs.append(join(
-            Relation(vars=rvars, cols=m.T, valid=m[:, ri] != INVALID,
-                     overflow=zero),
-            Relation(vars=avars, cols=af.T, valid=af[:, ai] != INVALID,
-                     overflow=zero),
-            jcap, a_sorted=True))
-    return ((outs[0].vars, torch.stack([o.cols for o in outs]),
-             torch.stack([o.valid for o in outs])),
-            torch.stack([o.overflow for o in outs]))
+    for j, d in enumerate(devices):
+        with device_ctx(d):
+            zero = torch.zeros((), dtype=torch.int32, device=d)
+            runs = [r for r in rrecv[j] if r.shape[0]]
+            m = _padded(_merge_tree(runs, ri) if runs else rrecv[j][0])
+            af = _padded(torch.cat(arecv[j]))
+            outs.append(join(
+                Relation(vars=rvars, cols=m.T, valid=m[:, ri] != INVALID,
+                         overflow=zero),
+                Relation(vars=avars, cols=af.T, valid=af[:, ai] != INVALID,
+                         overflow=zero),
+                jcap, a_sorted=True))
+    return ((outs[0].vars, [o.cols for o in outs], [o.valid for o in outs]),
+            [o.overflow for o in outs])
 
 
-def _distinct_per_shard(rel, sel, cap: int):
-    """DISTINCT projection of each shard's slice of a stacked relation."""
+def _distinct_per_shard(rel, sel, cap: int, devices: list):
+    """DISTINCT projection of each shard's relation, on its device."""
     rvars, cols, valid = rel
-    zero = torch.zeros((), dtype=torch.int32, device=cols.device)
-    outs = [distinct(Relation(vars=rvars, cols=c, valid=v, overflow=zero),
-                     sel, cap)
-            for c, v in zip(cols, valid)]
-    return (torch.stack([o.cols for o in outs]),
-            torch.stack([o.valid for o in outs]))
+    outs = []
+    for c, v, d in zip(cols, valid, devices):
+        with device_ctx(d):
+            zero = torch.zeros((), dtype=torch.int32, device=d)
+            outs.append(distinct(Relation(vars=rvars, cols=c, valid=v,
+                                          overflow=zero), sel, cap))
+    return [o.cols for o in outs], [o.valid for o in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -897,15 +1082,17 @@ def _distinct_per_shard(rel, sel, cap: int):
 class ShardedQueryEngine:
     """Executes conjunctive plans across a ShardedKB's shards.
 
-    Subject-co-hashed groups run the full per-shard QueryEngine plans
-    through a per-shard dispatch loop, over the live shards' own engines
-    or, for a snapshot (core/snapshot.py), over ``pinned`` per-shard
-    engines bound to its views: live and pinned reads share one loop.
-    Cross-group joins combine either by the host fold (gather the
-    per-shard relations, fold them key-sorted with the merge-path kernel,
-    presorted merge join + distinct) or, with ``use_repartition_join``,
-    by the repartition combine (bin both sides by a hash of the join key,
-    swap the bins on the shard axis, join per shard) — both equal to the
+    Subject-co-hashed groups run the full per-shard QueryEngine plans, over
+    the live shards' own engines or, for a snapshot (core/snapshot.py),
+    over ``pinned`` per-shard engines bound to its views: live and pinned
+    reads share one engine.  A group's routed shards are all planned on
+    the host, then each plan body is enqueued on its shard's device with
+    no host sync between shards, and only then read.  Cross-group joins
+    combine either by the host fold (gather the per-shard relations, fold
+    them key-sorted with the merge-path kernel, presorted merge join +
+    distinct) or, with ``use_repartition_join``, by the repartition
+    combine (bin both sides by a hash of the join key, exchange the bins
+    between the shards' devices, join per shard) — both equal to the
     single store.
     """
 
@@ -913,10 +1100,9 @@ class ShardedQueryEngine:
     mode: str = "litemat"
     use_index: bool = True
     pinned: list | None = None  # per-shard engines over pinned views
-    use_shard_map: bool = False  # True raises: port slice 6b
     use_repartition_join: bool = False
     cache_stats: dict = field(
-        default_factory=lambda: {"loop_runs": 0, "repartition_runs": 0,
+        default_factory=lambda: {"group_runs": 0, "repartition_runs": 0,
                                  "exchange_faults": 0},
         repr=False)
 
@@ -938,10 +1124,11 @@ class ShardedQueryEngine:
             for g in plan_groups(pats, self.mode, self.skb.tbox):
                 gpats = [pats[i] for i in g]
                 gvars = _group_vars(gpats)
-                for eng in self._engines():
+                for i, eng in enumerate(self._engines()):
                     if eng.view.n:
-                        n += eng.prewarm([gpats], buckets=buckets,
-                                         select=gvars)
+                        with self.skb._device_ctx(i):
+                            n += eng.prewarm([gpats], buckets=buckets,
+                                             select=gvars)
         return n
 
     # -- group evaluation ----------------------------------------------------
@@ -960,61 +1147,102 @@ class ShardedQueryEngine:
                                      self.skb.n_shards)[0])]
         return list(range(self.skb.n_shards))
 
-    def _run_group(self, gpats, gvars) -> list:
-        """Per-shard dispatch: each routed shard's engine runs the group
-        plan (the ``shard.query_shard`` fault site); a shard whose view is
-        empty is skipped.  Returns the non-empty per-shard parts."""
-        if self.use_shard_map:
-            raise NotImplementedError(_NO_SHARD_MAP)
-        self.cache_stats["loop_runs"] += 1
-        REGISTRY.counter("shard/group_runs", path="loop").inc()
+    def _run_shards(self, gpats, gvars, max_retries: int = 6) -> list:
+        """-> ``[(i, cols int32[V, cap], valid bool[cap], rows)]`` per
+        routed shard with a non-empty view, ``cols``/``valid`` on shard i's
+        device (its distinct rows first), ``rows`` their count.
+
+        Every routed shard is planned on the host first (each engine's
+        ``_plan``: its counting passes read the device); then each plan
+        body is enqueued on its shard's device (the ``shard.query_shard``
+        fault site), with no host sync between shards; only then is each
+        shard's outcome read, and a shard that overflowed runs again with
+        its capacities doubled (``join/capacity_retry{shard=i}``).  Each
+        shard keeps its own plan and capacities: no executable is shared,
+        so the reference's signature check and unified caps have no
+        counterpart.
+        """
         engines = self._engines()
-        parts = []
-        with obs_trace.span("shard_dispatch", path="loop",
-                            n_shards=self.skb.n_shards):
-            for i in self._route_shards(gpats, engines):
-                if engines[i].view.n == 0:
-                    continue
-                faults.fire("shard.query_shard", shard=i)
-                rows, _ = engines[i].run(gpats, select=gvars)
-                if rows.shape[0]:
-                    parts.append(np.asarray(rows, dtype=np.int32))
-        return parts
+        routed = [i for i in self._route_shards(gpats, engines)
+                  if engines[i].view.n]
+        planned = {}
+        with obs_trace.span("shard_dispatch", n_shards=self.skb.n_shards):
+            for i in routed:
+                with self.skb._device_ctx(i), obs_trace.span(
+                        "plan", mode=self.mode, n_patterns=len(gpats)):
+                    planned[i] = list(engines[i]._plan(gpats, gvars))
+            pending, done = list(routed), {}
+            for attempt in range(max_retries):
+                launched = {}
+                for i in pending:
+                    faults.fire("shard.query_shard", shard=i)
+                    with self.skb._device_ctx(i):
+                        launched[i] = engines[i]._launch(planned[i])
+                retry = []
+                for i in pending:
+                    with self.skb._device_ctx(i):
+                        out = engines[i]._settle(planned[i], launched[i],
+                                                 attempt, shard=str(i))
+                    if out is None:
+                        retry.append(i)
+                    else:
+                        done[i] = out
+                pending = retry
+                if not pending:
+                    break
+            else:
+                raise RuntimeError("sharded query kept overflowing its "
+                                   "buckets")
+        self.cache_stats["group_runs"] += 1
+        REGISTRY.counter("shard/group_runs").inc()
+        return [(i, *done[i]) for i in routed]
+
+    def _run_group(self, gpats, gvars) -> list:
+        """A group's non-empty per-shard parts, pulled to the host for the
+        host fold.  The repartition combine keeps them on the devices."""
+        return [cols[:, :n].T.cpu().numpy()
+                for _, cols, _, n in self._run_shards(gpats, gvars) if n]
 
     # -- the repartition combine ---------------------------------------------
     def _run_repartition(self, patterns, groups, select, max_retries):
-        """Evaluate groups, fold them with the repartition combine."""
+        """Evaluate groups, fold them with the repartition combine: each
+        group's results stay on the shards' devices."""
+        devs = self.skb.shard_devices()
         evaluated = []
         with obs_trace.span("shard_combine", path="repartition",
                             n_groups=len(groups)):
             for g in groups:
                 gpats = [patterns[i] for i in g]
                 gvars = _group_vars(gpats)
-                cols, valid = _stack_parts(self._run_group(gpats, gvars),
-                                           len(gvars), self.skb.n_shards,
-                                           self.skb.device)
-                evaluated.append((gvars, cols, valid))
+                rels = [_empty_relation(len(gvars), d) for d in devs]
+                total = 0
+                for i, cols, valid, n in self._run_shards(gpats, gvars):
+                    rels[i] = (cols, valid)
+                    total += n
+                cols, valid = (list(x) for x in zip(*rels))
+                evaluated.append((gvars, cols, valid, total))
             return self._combine_groups_device(evaluated, patterns, select,
                                                max_retries)
 
     def _combine_groups_device(self, evaluated, patterns, select,
                                max_retries):
-        """Fold stacked per-shard group results on the device.
+        """Fold per-shard group results on the shards' devices.
 
         Mirrors ``combine_groups``' order (fewest rows first, greedy
         connected) and capacities, but every cross-group join runs as a
-        hash-repartition join: intermediate relations stay stacked on the
-        device between steps.  Only the final per-shard DISTINCT rows come
-        back, and one host sorted-unique pass reproduces the global
-        distinct's lexicographic order.
+        hash-repartition join: intermediate relations stay on the devices
+        between steps.  Only the final per-shard DISTINCT rows come back,
+        and one host sorted-unique pass reproduces the global distinct's
+        lexicographic order.
         """
+        devs = self.skb.shard_devices()
         all_vars = tuple(dict.fromkeys(
             v for pat in patterns for v in (pat.s, pat.p, pat.o)
             if is_var(v)))
         sel = tuple(select) if select else all_vars
-        totals = [int(valid.sum()) for _, _, valid in evaluated]
+        totals = [e[3] for e in evaluated]
         order = sorted(range(len(evaluated)), key=lambda i: totals[i])
-        acc = None  # (vars, cols [S, V, cap], valid [S, cap])
+        acc = None  # (vars, [cols [V, cap]], [valid [cap]], rows)
         done = set()
         while len(done) < len(order):
             pick = None
@@ -1034,13 +1262,13 @@ class ShardedQueryEngine:
             rel = evaluated[pick]
             key = next(v for v in rel[0] if v in acc[0])
             faults.fire("shard.exchange")
-            jcap = _pow2(max(totals[pick], int(acc[2].sum()), 1) * 2,
-                         floor=256)
+            jcap = _pow2(max(totals[pick], acc[3], 1) * 2, floor=256)
             plabel = sig_label(tuple((p.s, p.p, p.o) for p in patterns))
             for attempt in range(max_retries):
-                out, ovf = _repartition_join(acc, rel, key, jcap)
-                ovf = ovf.cpu().numpy().reshape(-1)
-                if int(ovf.max()) == 0:
+                out, ovf = _repartition_join(acc[:3], rel[:3], key, jcap,
+                                             devs)
+                ovf = [int(o) for o in ovf]  # every shard enqueued first
+                if max(ovf) == 0:
                     if attempt:
                         REGISTRY.histogram(
                             "join/capacity_depth", site="repartition",
@@ -1053,17 +1281,18 @@ class ShardedQueryEngine:
                 jcap *= 2
             else:
                 raise RuntimeError("sharded join kept overflowing")
-            acc = out
+            acc = (*out, sum(int(v.sum()) for v in out[2]))
         self.cache_stats["repartition_runs"] += 1
         REGISTRY.counter("shard/combine_runs", path="repartition").inc()
         # per-shard distinct shrinks the readback; identical sel-tuples can
         # still straddle shards when sel drops the last join key, so one
         # host sorted-unique pass finishes the global dedup in the same
         # ascending-lexicographic order `distinct` emits
-        dcols, dvalid = _distinct_per_shard(acc, sel, int(acc[1].shape[2]))
-        counts = dvalid.sum(1).tolist()
-        dcols = dcols.cpu().numpy()
-        parts = [dcols[i][:, :n].T for i, n in enumerate(counts) if n]
+        dcols, dvalid = _distinct_per_shard(
+            acc[:3], sel, max(c.shape[1] for c in acc[1]), devs)
+        counts = [int(v.sum()) for v in dvalid]
+        parts = [c[:, :n].T.cpu().numpy()
+                 for c, n in zip(dcols, counts) if n]
         if not parts:
             return np.zeros((0, len(sel)), np.int32), sel
         return np.unique(np.concatenate(parts), axis=0), sel
@@ -1077,7 +1306,7 @@ class ShardedQueryEngine:
         pass produces — equal to the single store's given the same
         ``select``.  Multi-group plans fold through the repartition
         combine when it is on, degrading to the host fold on an exchange
-        fault (``FaultError`` only: a kernel that fails raises).
+        or device fault (``FaultError`` only: a kernel that fails raises).
         """
         patterns = list(patterns)
         self._sync()
@@ -1107,10 +1336,10 @@ class ShardedQueryEngine:
         request's (rows, select).
 
         Every member is decomposed into its pattern groups, and ALL
-        members' groups routed to a shard ride one ``run_batch`` there —
-        same-signature groups from different requests coalesce inside
-        that shard's engine — before each member combines its own groups
-        through the host fold.
+        members' groups routed to a shard ride one ``run_batch`` there, on
+        the shard's device — same-signature groups from different requests
+        coalesce inside that shard's engine — before each member combines
+        its own groups through the host fold.
         """
         self._sync()
         members, flat = [], []  # (patterns, select, [flat idx]); groups
@@ -1132,8 +1361,9 @@ class ShardedQueryEngine:
                 if not mine or eng.view.n == 0:
                     continue
                 faults.fire("shard.query_shard", shard=i)
-                res = eng.run_batch([flat[f] for f in mine],
-                                    max_retries=max_retries)
+                with self.skb._device_ctx(i):
+                    res = eng.run_batch([flat[f] for f in mine],
+                                        max_retries=max_retries)
                 for f, (rows, _) in zip(mine, res):
                     if rows.shape[0]:
                         parts[f].append(np.asarray(rows, dtype=np.int32))

@@ -25,9 +25,10 @@ scatters could change a device buffer a long-running reader still reads.
     tagged ``stale=True`` instead of blocking or erroring.
 
 Snapshots work for both the single :class:`KnowledgeBase` and the
-:class:`~repro_torch.core.shard.ShardedKB` (per-shard views; queries run
-through a :class:`~repro_torch.core.shard.ShardedQueryEngine` over
-per-shard engines bound to them, the live store's loop and combine).  Query
+:class:`~repro_torch.core.shard.ShardedKB` (per-shard views, each on its
+shard's device; queries run through a
+:class:`~repro_torch.core.shard.ShardedQueryEngine` over per-shard engines
+bound to them, the live store's paths and combines).  Query
 plans live in registry-level caches shared across snapshots, so pinning
 is cheap: no new plan bodies, no buffer copies, just refcounts.
 """
@@ -111,7 +112,7 @@ class Snapshot:
                 eng = ShardedQueryEngine(
                     skb=self.kb, mode=mode, use_index=self.use_index,
                     pinned=[QueryEngine(
-                        kb=K.kb, spo=v.base_rows, mode=mode, dtb=self.kb.dtb,
+                        kb=K.kb, spo=v.base_rows, mode=mode, dtb=K.dtb,
                         use_index=self.use_index, view=v, _exec_cache=cache,
                         observed_selectivity=self._selectivity)
                         for K, v in zip(self.kb.shards, self.views[mode])])
@@ -271,7 +272,10 @@ class SnapshotRegistry:
             if is_sharded(kb):
                 if mode in ("litemat", "full"):
                     kb._flush(mode)
-                vs = [K.view(mode) for K in kb.shards]
+                vs = []
+                for i, K in enumerate(kb.shards):  # on the shard's device
+                    with kb._device_ctx(i):
+                        vs.append(K.view(mode))
                 for v in vs:
                     v.pinned = True
                 views[mode] = vs

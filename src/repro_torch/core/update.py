@@ -127,6 +127,31 @@ class DynamicDictionary:
         out = self.lookup(fps)
         return out, int(new_fps.shape[0])
 
+    def register(self, fps: np.ndarray, ids: np.ndarray) -> int:
+        """Adopt externally assigned (fps, ids) — the sharded encode's terms.
+
+        The sharded dictionary build (``dictionary.py::
+        sharded_dictionary_fn``) assigns ids to a batch's unknown terms in
+        its own hash-partitioned order; this splices them into the host
+        mirror and queues them as a pending TermTable chunk, exactly like
+        ``encode`` does for its own allocations.  ``fps`` must be distinct
+        unknown terms and ``ids`` must sit at/above ``next_id``.
+        """
+        fps = np.asarray(fps, dtype=np.int64)
+        ids = np.asarray(ids, dtype=np.int32)
+        if fps.shape[0] == 0:
+            return 0
+        order = np.argsort(fps)
+        fps, ids = fps[order], ids[order]
+        self.next_id = max(self.next_id, int(ids.max()) + 1)
+        self.n_new_terms += int(fps.shape[0])
+        self._pending_fps.append(fps)
+        self._pending_ids.append(ids)
+        ins = np.searchsorted(self.fps, fps)
+        self.fps = np.insert(self.fps, ins, fps)
+        self.ids = np.insert(self.ids, ins, ids)
+        return int(fps.shape[0])
+
     def take_new_terms(self):
         """Drain terms allocated since the last call -> (fps, ids) or None.
 

@@ -9,11 +9,15 @@ import: the first launch of a kernel builds it, and ``build_all`` builds
 every source at once, one ``nvcc`` per source, all started together.
 
 A wrapper launches through an ``Entry``: its C function, resolved on the
-first call and kept, called with the raw pointer of PyTorch's current
-stream, its returned ``cudaGetLastError`` checked; then it counts the
-launch with ``launched``.  The wrappers' own
-argument checks are plain attribute tests, so one launch costs the
-caller a few microseconds of Python.
+first call and kept, called on the device of the wrapper's tensors with
+the raw pointer of PyTorch's current stream there, its returned
+``cudaGetLastError`` checked; then it counts the launch with
+``launched``.  The CUDA runtime's current device belongs to the calling
+thread, and the C entries zero buffers and launch on it, so ``Entry``
+makes the tensors' device current for the call when it is not already
+(and puts the thread's back after).  The wrappers' own argument checks
+are plain attribute tests, so one launch costs the caller a few
+microseconds of Python.
 """
 from __future__ import annotations
 
@@ -100,10 +104,13 @@ def library(name: str) -> ctypes.CDLL:
 
 
 class Entry:
-    """C entry point ``symbol`` of ``csrc/<source>.cu``, returning the launch's
-    ``cudaGetLastError``.  The typed ctypes function is resolved (and the
-    source built) on the first call, then kept; a call raises if the launch
-    reported an error."""
+    """C entry point ``symbol`` of ``csrc/<source>.cu``, taking the stream
+    last and returning the launch's ``cudaGetLastError``.  The typed ctypes
+    function is resolved (and the source built) on the first call, then
+    kept.  ``entry(device, *args)`` calls it with ``args`` and the current
+    stream of ``device`` (a CUDA device with its index), that device current
+    on the calling thread for the call; it raises if the launch reported an
+    error."""
 
     __slots__ = ("source", "symbol", "argtypes", "_fn")
 
@@ -111,17 +118,26 @@ class Entry:
         self.source, self.symbol, self.argtypes = source, symbol, list(argtypes)
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, device: torch.device, *args) -> None:
         fn = self._fn
         if fn is None:
             fn = getattr(library(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = fn(*args)
+        current = torch._C._cuda_getDevice()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:  # the thread's device is another card's: switch for the call
+            torch._C._cuda_setDevice(index)
+            try:
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+            finally:
+                torch._C._cuda_setDevice(current)
         if err:
-            raise RuntimeError(f"CUDA launch of {self.symbol} failed with "
-                               f"error {err}")
+            raise RuntimeError(f"CUDA launch of {self.symbol} on cuda:{index} "
+                               f"failed with error {err}")
 
 
 def stream(device: torch.device) -> int:
@@ -137,14 +153,18 @@ def stream(device: torch.device) -> int:
 
 
 _COUNT_LOCK = threading.Lock()
+DEVICE_LAUNCHES: dict = {}  # (wrapper name, device index) -> launches
 
 
-def launched(wrapper) -> None:
+def launched(wrapper, device: torch.device) -> None:
     """Add one to ``wrapper.launches``, the count of the wrapper's kernel
-    launches: under a lock, as wrappers launch from several threads (the
-    serving runtime's workers)."""
+    launches, and to its count on ``device`` in ``DEVICE_LAUNCHES``: under
+    a lock, as wrappers launch from several threads (the serving runtime's
+    workers)."""
+    key = (wrapper.__name__, device.index)
     with _COUNT_LOCK:
         wrapper.launches += 1
+        DEVICE_LAUNCHES[key] = DEVICE_LAUNCHES.get(key, 0) + 1
 
 
 def require_cuda(first: torch.Tensor, *rest: torch.Tensor) -> torch.device:

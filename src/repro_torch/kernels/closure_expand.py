@@ -56,9 +56,9 @@ def closure_expand(conc: torch.Tensor, sorted_ids: torch.Tensor,
     out = torch.empty((n, d), dtype=torch.int32, device=dev)
     if n == 0 or d == 0:
         return out
-    _EXPAND(conc.data_ptr(), n, sorted_ids.data_ptr(), c,
-            anc_table.data_ptr(), d, out.data_ptr(), build.stream(dev))
-    build.launched(closure_expand)
+    _EXPAND(dev, conc.data_ptr(), n, sorted_ids.data_ptr(), c,
+            anc_table.data_ptr(), d, out.data_ptr())
+    build.launched(closure_expand, dev)
     return out
 
 

@@ -44,7 +44,42 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
+
+// Opts a kernel into the most dynamic shared memory the device grants a
+// block, less the kernel's static shared memory, on the calling thread's
+// current device, once per device: the attribute belongs to the device and
+// is shared by the process's threads, so it is set once, to what any launch
+// may take, and never lowered under another thread's launch.  One object
+// per kernel.
+struct SmemOptIn {
+  static constexpr int kMaxDevices = 64;
+  std::once_flag once[kMaxDevices];
+  cudaError_t result[kMaxDevices] = {};
+
+  template <class K>
+  cudaError_t operator()(K kernel) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::call_once(once[dev], [&] {
+      int most = 0;
+      cudaFuncAttributes fa;
+      cudaError_t e = cudaDeviceGetAttribute(
+          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            most - (int)fa.sharedSizeBytes);
+      result[dev] = e;
+    });
+    return result[dev];
+  }
+};
 
 constexpr int kThreads = 256;
 constexpr int kStageMax = 8192;     // sorted ids staged whole up to here
@@ -298,14 +333,13 @@ Table make_table(const void* ids, const void* anc, int C, int D, bool wide) {
   return t;
 }
 
-// The CTAs of ``kernel`` that fill the card (at least one a multiprocessor),
-// once dynamic shared memory past 48 KB is granted to it.
+// The CTAs of ``kernel`` that fill the current device (at least one a
+// multiprocessor), or -1 when it cannot be granted ``smem`` bytes of
+// dynamic shared memory: past 48 KB, ``opt_in`` (the kernel's) opts it
+// into the device's most, once per device.
 template <class K>
-long long fill_grid(K kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
+long long fill_grid(K kernel, size_t smem, SmemOptIn& opt_in) {
+  if (smem > 48 * 1024 && opt_in(kernel) != cudaSuccess) return -1;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -321,7 +355,9 @@ int launch(const int32_t* conc, long long n, const Table& t, int D,
   const size_t smem = sizeof(int32_t) * (round4(t.ns) +
                                          (t.anc_staged ? round4(t.C * D) : 0)) +
                       (size_t)kThreads * D * sizeof(int4);
-  const long long fill = fill_grid(kernel, smem);
+  static SmemOptIn opt_in;
+  const long long fill = fill_grid(kernel, smem, opt_in);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
   const long long quads = n >> 2;
   const long long need = quads > 0 ? (quads + kThreads - 1) / kThreads : 1;
   const unsigned grid = (unsigned)(need < fill ? need : fill);
@@ -364,7 +400,9 @@ extern "C" int closure_expand(const void* conc, long long n, const void* ids,
   if (D <= 32) return launch_quads<32, false>(q, n, t, D, o, st);
   const size_t smem = sizeof(int32_t) * round4(t.ns);
   const long long tiles = (n + kThreads - 1) / kThreads;
-  const long long fill = fill_grid(closure_expand_wide, smem);
+  static SmemOptIn opt_in;
+  const long long fill = fill_grid(closure_expand_wide, smem, opt_in);
+  if (fill < 0) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(tiles < fill ? tiles : fill);
   closure_expand_wide<<<grid, kThreads, smem, st>>>(q, n, t, D, o);
   return (int)cudaGetLastError();

@@ -64,9 +64,34 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
+
+// Opts a kernel into ``bytes`` of dynamic shared memory on the calling
+// thread's current device, once per device: the attribute belongs to the
+// device and is shared by the process's threads, so it is set once to the
+// most any launch takes and never lowered under another thread's launch.
+// One object per kernel.
+struct SmemOptIn {
+  static constexpr int kMaxDevices = 64;
+  std::once_flag once[kMaxDevices];
+  cudaError_t result[kMaxDevices] = {};
+
+  template <class K>
+  cudaError_t operator()(K kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::call_once(once[dev], [&] {
+      result[dev] = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    });
+    return result[dev];
+  }
+};
 
 constexpr int kThreads = 512;  // compact_tiles' CTA
 constexpr int kWarps = kThreads / 32;
@@ -1168,10 +1193,9 @@ compact_lookback_group(GP pred, int ntiles, int members, int64_t cap,
 
 // Zero the outputs and the look-back state as launch_lookback does, then
 // launch one CTA per (group, tile); pred_smem: the bytes GP stages for a
-// group of min(members, kGroup).  Each kernel opts in once, when first
-// launched (on the process's one card), to the most dynamic shared memory
-// any launch of it takes: the attribute is shared by the process's
-// threads, so no launch may lower it under another's.
+// group of min(members, kGroup).  Each kernel opts in once per device,
+// when first launched there, to the most dynamic shared memory any launch
+// of it takes (SmemOptIn).
 template <typename GP>
 int launch_group(const GP& pred, long long members, long long n,
                  long long cap, void* take, void* ok, void* total,
@@ -1183,10 +1207,9 @@ int launch_group(const GP& pred, long long members, long long n,
   const long long groups = (members + kGroup - 1) / kGroup;
   const long long gsz = members < kGroup ? members : kGroup;
   constexpr size_t kMaxSmem = group_bits_bytes<NS>(kGroup) + GP::kMaxStaged;
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      compact_lookback_group<GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxSmem);
-  if (opt_in != cudaSuccess) return (int)opt_in;
+  static SmemOptIn opt_in;
+  const cudaError_t opted = opt_in(compact_lookback_group<GP>, (int)kMaxSmem);
+  if (opted != cudaSuccess) return (int)opted;
   const size_t smem = group_bits_bytes<NS>(gsz) + pred_smem;
   if (members < 1 || NS * members * tiles + 1 > scratch_words || cap < 0 ||
       cap >= (1ll << 31) || zero_bytes < 0 || groups * tiles >= (1ll << 31) ||

@@ -47,9 +47,9 @@ def interval_filter(p: torch.Tensor, o: torch.Tensor, params) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out
-    _FILTER(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
-            out.data_ptr(), build.stream(dev))
-    build.launched(interval_filter)
+    _FILTER(dev, p.data_ptr(), o.data_ptr(), p.stride(0), *params, n,
+            out.data_ptr())
+    build.launched(interval_filter, dev)
     return out
 
 

@@ -64,9 +64,9 @@ def _merge(a_hi, a_lo, b_hi, b_lo, block: int):
     nb = -(-(n + m) // block)
     splits = torch.empty(nb + 1, dtype=torch.int64, device=dev)
     out = torch.empty(n + m, dtype=torch.int32, device=dev)
-    _MERGE(a_hi.data_ptr(), a_lo.data_ptr(), a_hi.stride(0), n,
+    _MERGE(dev, a_hi.data_ptr(), a_lo.data_ptr(), a_hi.stride(0), n,
            b_hi.data_ptr(), b_lo.data_ptr(), b_hi.stride(0), m, block,
-           splits.data_ptr(), out.data_ptr(), build.stream(dev))
+           splits.data_ptr(), out.data_ptr())
     return out, True
 
 
@@ -78,7 +78,7 @@ def merge_path(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
     """
     out, launched = _merge(a_hi, a_lo, b_hi, b_lo, block)
     if launched:
-        build.launched(merge_path)
+        build.launched(merge_path, out.device)
     return out
 
 
@@ -89,7 +89,7 @@ def merge_path_resident(a_hi: torch.Tensor, a_lo: torch.Tensor,
     shorter than ``block``): the same kernel, its own launch count."""
     out, launched = _merge(a_hi, a_lo, b_hi, b_lo, block)
     if launched:
-        build.launched(merge_path_resident)
+        build.launched(merge_path_resident, out.device)
     return out
 
 

@@ -49,9 +49,8 @@ def msc_select(conc: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     keep = torch.empty((g, k), dtype=torch.bool, device=dev)
     if g == 0 or k == 0:
         return keep
-    _MSC(conc.data_ptr(), bounds.data_ptr(), g, k, keep.data_ptr(),
-         build.stream(dev))
-    build.launched(msc_select)
+    _MSC(dev, conc.data_ptr(), bounds.data_ptr(), g, k, keep.data_ptr())
+    build.launched(msc_select, dev)
     return keep
 
 

@@ -71,10 +71,10 @@ def pair_search(table_hi: torch.Tensor, table_lo: torch.Tensor,
     dev, qhi, qlo = _checked(table_hi, table_lo, qhi, qlo)
     n = qhi.shape[0]
     out = torch.empty(n, dtype=_I32, device=dev)
-    _SEARCH(table_hi.data_ptr(), table_lo.data_ptr(), table_hi.stride(0),
+    _SEARCH(dev, table_hi.data_ptr(), table_lo.data_ptr(), table_hi.stride(0),
             table_hi.shape[0], qhi.data_ptr(), qlo.data_ptr(), n,
-            out.data_ptr(), build.stream(dev))
-    build.launched(pair_search)
+            out.data_ptr())
+    build.launched(pair_search, dev)
     return out
 
 
@@ -88,10 +88,10 @@ def pair_range(table_hi: torch.Tensor, table_lo: torch.Tensor,
     n = qhi.shape[0]
     starts = torch.empty(n, dtype=_I32, device=dev)
     ends = torch.empty(n, dtype=_I32, device=dev)
-    _RANGE(table_hi.data_ptr(), table_lo.data_ptr(), table_hi.stride(0),
+    _RANGE(dev, table_hi.data_ptr(), table_lo.data_ptr(), table_hi.stride(0),
            table_hi.shape[0], qhi.data_ptr(), qlo.data_ptr(), n,
-           starts.data_ptr(), ends.data_ptr(), build.stream(dev))
-    build.launched(pair_range)
+           starts.data_ptr(), ends.data_ptr())
+    build.launched(pair_range, dev)
     return starts, ends
 
 

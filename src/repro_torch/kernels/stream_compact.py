@@ -194,8 +194,8 @@ def compact_mask(mask: torch.Tensor, cap: int):
         raise ValueError("compact_mask takes a contiguous 1-D bool mask")
     n = mask.shape[0]
     args, (out,) = _lookback_outputs(dev, 1, n, cap)
-    _COMPACT_MASK(mask.data_ptr(), n, *args, build.stream(dev))
-    build.launched(compact_mask)
+    _COMPACT_MASK(dev, mask.data_ptr(), n, *args)
+    build.launched(compact_mask, dev)
     return out
 
 
@@ -222,9 +222,8 @@ def compact_mask_batched(mask: torch.Tensor, cap: int):
                          "B >= 1, with contiguous rows")
     members, n = mask.shape
     args, (out,) = _lookback_outputs(dev, 1, n, cap, members)
-    _COMPACT_MASK_B(mask.data_ptr(), members, n, mask.stride(0), *args,
-                    build.stream(dev))
-    build.launched(compact_mask_batched)
+    _COMPACT_MASK_B(dev, mask.data_ptr(), members, n, mask.stride(0), *args)
+    build.launched(compact_mask_batched, dev)
     return out
 
 
@@ -263,9 +262,9 @@ def masked_interval_compact(p: torch.Tensor, o: torch.Tensor,
     n = p.shape[0]
     _check_alive(alive, n)
     args, (out,) = _lookback_outputs(dev, 1, n, cap)
-    _MASKED_INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), alive.data_ptr(),
-                     *params, n, *args, build.stream(dev))
-    build.launched(masked_interval_compact)
+    _MASKED_INTERVAL(dev, p.data_ptr(), o.data_ptr(), p.stride(0),
+                     alive.data_ptr(), *params, n, *args)
+    build.launched(masked_interval_compact, dev)
     return out
 
 
@@ -300,10 +299,10 @@ def masked_interval_compact_batched(p: torch.Tensor, o: torch.Tensor,
     if not params.is_contiguous() or params.data_ptr() % 16:
         params = params.clone()  # the kernel reads each row as one int4
     args, (out,) = _lookback_outputs(dev, 1, n, cap, params.shape[0])
-    _MASKED_INTERVAL_B(p.data_ptr(), o.data_ptr(), p.stride(0),
+    _MASKED_INTERVAL_B(dev, p.data_ptr(), o.data_ptr(), p.stride(0),
                        alive.data_ptr(), params.data_ptr(), params.shape[0], n,
-                       *args, build.stream(dev))
-    build.launched(masked_interval_compact_batched)
+                       *args)
+    build.launched(masked_interval_compact_batched, dev)
     return out
 
 
@@ -336,9 +335,9 @@ def interval_tiles(p: torch.Tensor, o: torch.Tensor, params, block: int):
     nb = n_tiles(n, block)
     local = torch.empty(nb * block, dtype=torch.int32, device=dev)
     counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    _INTERVAL(p.data_ptr(), o.data_ptr(), p.stride(0), *params, n, block, nb,
-              local.data_ptr(), counts.data_ptr(), build.stream(dev))
-    build.launched(interval_tiles)
+    _INTERVAL(dev, p.data_ptr(), o.data_ptr(), p.stride(0), *params, n, block,
+              nb, local.data_ptr(), counts.data_ptr())
+    build.launched(interval_tiles, dev)
     return local, counts
 
 
@@ -427,11 +426,11 @@ def member_compact(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
     n = s.shape[0]
     _check_member_args(s, p, o, alive, (mem, dom, rng), 1)
     args, outs = _lookback_outputs(dev, 2 if has_rng else 1, n, cap)
-    _MEMBER(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
+    _MEMBER(dev, s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
             alive.data_ptr(), tid, mem.data_ptr(), mem.shape[0],
             dom.data_ptr(), dom.shape[0], rng.data_ptr(), rng.shape[0],
-            int(has_dom), int(has_rng), n, *args, build.stream(dev))
-    build.launched(member_compact)
+            int(has_dom), int(has_rng), n, *args)
+    build.launched(member_compact, dev)
     return outs
 
 
@@ -470,12 +469,11 @@ def member_compact_batched(s: torch.Tensor, p: torch.Tensor, o: torch.Tensor,
     if members < 1 or dom.shape[0] != members or rng.shape[0] != members:
         raise ValueError("mem, dom and rng must hold one set per member")
     args, outs = _lookback_outputs(dev, 2 if has_rng else 1, n, cap, members)
-    _MEMBER_B(s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
+    _MEMBER_B(dev, s.data_ptr(), p.data_ptr(), o.data_ptr(), s.stride(0),
               alive.data_ptr(), tid, mem.data_ptr(), mem.shape[1],
               dom.data_ptr(), dom.shape[1], rng.data_ptr(), rng.shape[1],
-              int(has_dom), int(has_rng), members, n, *args,
-              build.stream(dev))
-    build.launched(member_compact_batched)
+              int(has_dom), int(has_rng), members, n, *args)
+    build.launched(member_compact_batched, dev)
     return outs
 
 
@@ -509,9 +507,8 @@ def dual_compact(mask_a: torch.Tensor, mask_b: torch.Tensor, cap: int):
                          "of one length")
     n = mask_a.shape[0]
     args, outs = _lookback_outputs(dev, 2, n, cap)
-    _DUAL_MASK(mask_a.data_ptr(), mask_b.data_ptr(), n, *args,
-               build.stream(dev))
-    build.launched(dual_compact)
+    _DUAL_MASK(dev, mask_a.data_ptr(), mask_b.data_ptr(), n, *args)
+    build.launched(dual_compact, dev)
     return outs
 
 

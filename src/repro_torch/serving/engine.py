@@ -26,11 +26,11 @@ store field.
 
 :class:`ShardedQueryServer` serves the same plans over a
 :class:`~repro_torch.core.shard.ShardedKB`: every shard keeps its own type
-index and property view (class-membership subjects are co-hashed —
-derived ``(x rdf:type C)`` rows live on ``shard(x)`` — so per-shard
-distinct sets are DISJOINT), a batch runs once per shard, and the
-per-shard answers merge by summing distinct counts and merge-sorting the
-per-shard member lists.
+index and property view on its device (class-membership subjects are
+co-hashed — derived ``(x rdf:type C)`` rows live on ``shard(x)`` — so
+per-shard distinct sets are DISJOINT), a batch runs once per shard on
+that shard's device, and the per-shard answers merge by summing distinct
+counts and merge-sorting the per-shard member lists.
 
 No kernel of the reference runs here: the batched plans are sorts,
 gathers and binary searches, so they are plain torch.
@@ -272,10 +272,11 @@ class ShardedQueryServer:
     The request/answer contract of :class:`QueryServer` — counts and
     member lists equal the single store's — with the device work run per
     shard: the batch's index ranges resolve against every shard's own type
-    index, the batched plan runs once per shard (a loop over the shards,
-    which all live on one device; each shard's planes stay unpadded), and
-    the per-shard answers merge by summing counts (disjoint distinct sets)
-    and merge-sorting member lists.
+    index on the host, then the batched plan is enqueued once per shard on
+    its device (each shard's planes stay unpadded) with no host sync
+    between shards, and the per-shard answers merge on the home device by
+    summing counts (disjoint distinct sets) and merge-sorting member
+    lists.
     """
 
     K: object  # ShardedKB
@@ -311,9 +312,11 @@ class ShardedQueryServer:
             self.K._flush("litemat")
             tid = int(self.K.dtb.rdf_type_id)
             views = []
-            for K in self.K.shards:
-                spo = K.store_rows("litemat")
-                views.append((TypeIndex.build(spo, tid), _prop_view(spo, tid)))
+            for i, K in enumerate(self.K.shards):
+                with self.K._device_ctx(i):
+                    spo = K.store_rows("litemat")
+                    views.append((TypeIndex.build(spo, tid),
+                                  _prop_view(spo, tid)))
             self._views["shards"] = views
         return self._views["shards"]
 
@@ -322,14 +325,18 @@ class ShardedQueryServer:
     def _fan(self, plan, class_names):
         """Run ``plan`` on every shard; -> (summed counts, merged members)."""
         clo, chi = self._intervals(class_names, self.K.kb.tbox.concepts)
-        counts, members = [], []
-        for ti, prop in self._shard_views():
-            starts, lens, cap = _index_ranges(ti, clo, chi, self.topk)
-            c, m = plan(ti, prop, starts, lens, cap)
-            counts.append(c)
-            members.append(m)
-        return (torch.stack(counts).sum(0, dtype=torch.int32).cpu().numpy(),
-                _merge_members(torch.stack(members), self.topk).cpu().numpy())
+        views = self._shard_views()
+        ranges = [_index_ranges(ti, clo, chi, self.topk) for ti, _ in views]
+        outs = []
+        for i, ((ti, prop), r) in enumerate(zip(views, ranges)):
+            with self.K._device_ctx(i):
+                outs.append(plan(ti, prop, *r))
+        home = self.K.device
+        counts = torch.stack([c.to(home, non_blocking=True) for c, _ in outs])
+        members = torch.stack([m.to(home, non_blocking=True)
+                               for _, m in outs])
+        return (counts.sum(0, dtype=torch.int32).cpu().numpy(),
+                _merge_members(members, self.topk).cpu().numpy())
 
     def class_members(self, class_names):
         """Batched Q1: run per shard, sum counts, merge member lists."""

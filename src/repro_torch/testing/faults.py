@@ -23,8 +23,9 @@ Instrumented sites (grep for ``faults.fire``):
 
   ``engine.flush_mat``        per derived batch inside KnowledgeBase._flush_mat
   ``shard.flush_mat``         per derived batch inside ShardedKB._flush
-  ``shard.shard_map``         before a stacked shard_map group executes
-  ``shard.query_shard``       per shard inside the dispatch loop (slow shard)
+  ``shard.query_shard``       per routed shard before its plan body is
+                              enqueued (slow shard)
+  ``shard.exchange``          before a repartition join's exchange
   ``shard.ingest_encode``     per part inside ShardedKB.ingest's encode step
   ``snapshot.publish``        inside SnapshotRegistry publish (holding locks)
   ``snapshot.retire``         between victim selection and removal (race window)

@@ -207,3 +207,63 @@ def member_batched_edges(device, seed: int = 0, ns=BATCH_N):
                     for cap in _caps(n):
                         yield (rows[:n, 0], rows[:n, 1], rows[:n, 2],
                                alive[:n], 3, mem, dom, rng, hd, hr, cap)
+
+
+SHARDED_NS = (0, 1, 8193)  # rows of the sharded path's compaction edges
+
+
+def sharded_path_edges(device, seed: int = 8):
+    """``(kernel, run, plain)`` for every kernel of the sharded path on
+    ``device``: ``run()`` calls the wrapper named ``kernel`` and ``plain()``
+    its plain version on the same inputs, each returning a list of tensors
+    to hold equal.  K1 (solo and batched), K2 and K4 (solo on each
+    batched edge's first member, and batched) at n of ``SHARDED_NS``, K3's
+    range entry over a strided 100,000-row table with duplicate keys and
+    probes past both ends, and K5/K6 (both wrappers) on a long and a short
+    run; what the card tests and ``chip_smoke.py`` run on a second card."""
+    from repro_torch.kernels import merge_sorted as ms
+    from repro_torch.kernels import pair_search as ps
+    from repro_torch.kernels import stream_compact as sc
+    from repro_torch.utils.pair64 import pair_key
+
+    def flat(streams):
+        return [t for st in streams for t in st]
+
+    for mask, cap in compact_mask_batched_edges(device, seed, SHARDED_NS):
+        yield ("compact_mask", lambda m=mask[0], c=cap: sc.compact_mask(m, c),
+               lambda m=mask[0], c=cap: sc.compact_mask_plain(m, c))
+        yield ("compact_mask_batched",
+               lambda m=mask, c=cap: sc.compact_mask_batched(m, c),
+               lambda m=mask, c=cap: sc.compact_mask_batched_plain(m, c))
+    for a in masked_interval_batched_edges(device, seed, SHARDED_NS):
+        solo = (*a[:3], a[3][0].tolist(), a[4])
+        yield ("masked_interval_compact",
+               lambda a=solo: sc.masked_interval_compact(*a),
+               lambda a=solo: sc.masked_interval_compact_plain(*a))
+        yield ("masked_interval_compact_batched",
+               lambda a=a: sc.masked_interval_compact_batched(*a),
+               lambda a=a: sc.masked_interval_compact_batched_plain(*a))
+    for a in member_batched_edges(device, seed, SHARDED_NS):
+        solo = (*a[:5], a[5][0], a[6][0], a[7][0], *a[8:])
+        yield ("member_compact",
+               lambda a=solo: flat(sc.member_compact(*a)),
+               lambda a=solo: flat(sc.member_compact_plain(*a)))
+        yield ("member_compact_batched",
+               lambda a=a: flat(sc.member_compact_batched(*a)),
+               lambda a=a: flat(sc.member_compact_batched_plain(*a)))
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, 40, (100_000, 3), generator=g, dtype=torch.int32)
+    rows = rows[torch.sort(rows[:, 1].long() * 64 + rows[:, 0],
+                           stable=True).indices].to(device)
+    qh = torch.randint(-2, 43, (3000,), generator=g, dtype=torch.int32)
+    ql = torch.randint(-2, 43, (3000,), generator=g, dtype=torch.int32)
+    qh[:40], ql[40:80] = _I32_MAX, _I32_MAX
+    args = (rows[:, 1], rows[:, 0], qh.to(device), ql.to(device))
+    yield ("pair_range", lambda: list(ps.pair_range(*args)),
+           lambda: list(ps.pair_range_plain(*args)))
+    perm = torch.sort(pair_key(args[2], args[3]), stable=True).indices
+    ah, al = args[2][perm], args[3][perm]  # the probes as a sorted run
+    for runs in ((ah, al, rows[:, 1], rows[:, 0]), (ah[:7], al[:7], ah, al)):
+        for name in ("merge_path", "merge_path_resident"):
+            yield (name, lambda r=runs, f=getattr(ms, name): [f(*r)],
+                   lambda r=runs: [ms.merge_path_plain(*r)])

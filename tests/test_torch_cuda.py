@@ -20,7 +20,7 @@ from repro_torch.kernels import stream_compact as t_sc
 from repro_torch.kernels import ops as t_ops
 from repro_torch.testing.kernel_edges import (
     closure_expand_edges, compact_mask_batched_edges,
-    masked_interval_batched_edges, member_batched_edges,
+    masked_interval_batched_edges, member_batched_edges, sharded_path_edges,
 )
 
 
@@ -380,3 +380,30 @@ def test_cuda_batched_ops_are_one_launch():
         assert t_ops.pass_counters[kind] == 1
         assert sum(t_ops.pass_counters.values()) == 1
         assert out[0].shape == (16, 4096)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_a_second_device():
+    """With ``cuda:0`` current on the calling thread and the tensors on the
+    last card, every kernel of the sharded path
+    (``kernel_edges.sharded_path_edges``: K1, K2 and K4 solo and batched —
+    the batched K2's and K4's large shared memory is opted into per device
+    — K3's range entry and K5/K6) and K11 (its grid sized for the device)
+    launches there, equals its plain version bit for bit and counts its
+    launch under that device; the thread's device stays ``cuda:0`` (needs
+    two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a shard per card")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    t_build.DEVICE_LAUNCHES.clear()
+    names = set()
+    for name, run, plain in sharded_path_edges(dev):
+        _same(run(), plain())
+        names.add(name)
+    for args in closure_expand_edges(dev):
+        _same([t_ce.closure_expand(*args)], [t_ce.closure_expand_plain(*args)])
+    assert torch.cuda.current_device() == 0
+    assert {n for n, index in t_build.DEVICE_LAUNCHES
+            if index == dev.index} == names | {"closure_expand"}
+    assert not any(index == 0 for _, index in t_build.DEVICE_LAUNCHES)

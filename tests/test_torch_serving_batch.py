@@ -416,8 +416,9 @@ def test_latency_stats_is_bounded_state(tkb):
 
 def test_launch_counts_are_exact_across_threads():
     """The runtime's workers launch kernels from several threads: a
-    wrapper's launch count loses no increment under a short switch
-    interval (``build.launched`` holds a lock around ``+= 1``)."""
+    wrapper's launch count, and its count on the launch's device, lose no
+    increment under a short switch interval (``build.launched`` holds a
+    lock around both ``+= 1``)."""
     import sys
 
     from repro_torch.kernels import build
@@ -426,11 +427,13 @@ def test_launch_counts_are_exact_across_threads():
         pass
 
     wrapper.launches = 0
+    dev = torch.device("cuda", 1)  # a device name: nothing runs on it
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [build.launched(wrapper) for _ in range(5000)])
+            target=lambda: [build.launched(wrapper, dev)
+                            for _ in range(5000)])
             for _ in range(8)]
         for t in threads:
             t.start()
@@ -440,3 +443,4 @@ def test_launch_counts_are_exact_across_threads():
     finally:
         sys.setswitchinterval(old)
     assert wrapper.launches == 8 * 5000
+    assert build.DEVICE_LAUNCHES.pop(("wrapper", 1)) == 8 * 5000

@@ -183,6 +183,39 @@ def test_answers_match_reference_in_fingerprint_space(random_pair,
         assert _fp(T, got) == _fp(reference_single, want), use_index
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_device_path_matches_reference_in_fingerprint_space(
+        random_pair, reference_single, mode):
+    """The device path on the 4 shards that share the CPU: every group's
+    plan bodies enqueued shard after shard, the two-group query's
+    results kept per shard through the repartition combine (no relation
+    re-uploaded), indexed and scan: the reference's single store's
+    answers in fingerprint space."""
+    _, _, T, _, _ = random_pair
+    pats = [Pattern("?x", "worksFor", "?y"),
+            Pattern("?y", "rdf:type", "Organization")]
+    jpats = [JPattern(p.s, p.p, p.o) for p in pats]
+    sel = _sel(pats)
+    uploads = REGISTRY.counter("device/transfer_bytes", src="combine_upload")
+    for use_index in (True, False):
+        eng = T.engine(mode, use_index)
+        eng.use_repartition_join = True
+        try:
+            stats0, up0 = dict(eng.cache_stats), uploads.value
+            got, _ = eng.run(pats, select=sel)
+            assert eng.cache_stats["group_runs"] == stats0[
+                "group_runs"] + 2  # one a group
+            assert eng.cache_stats["repartition_runs"] == stats0[
+                "repartition_runs"] + 1
+            assert uploads.value == up0
+        finally:
+            eng.use_repartition_join = False
+        want, _ = reference_single.query(jpats, select=sel, mode=mode,
+                                         use_index=use_index)
+        assert np.asarray(want).shape[0] > 0
+        assert _fp(T, got) == _fp(reference_single, want), use_index
+
+
 def test_sharded_query_server_matches_reference(random_pair):
     """Counts and member lists of the port's ShardedQueryServer equal the
     reference's on the same 4-shard store, for every class of the serving
@@ -469,17 +502,21 @@ def test_exchange_faults(lubm_pair, exc):
 
 
 def test_unported_paths_refuse(lubm_pair, monkeypatch):
-    _, S = lubm_pair
+    """The device path, refused before sharding across devices was
+    ported, now runs on shards that share a device (the CPU here), every
+    routed shard's plan enqueued before any is read, and answers as the
+    single store; a store without CUDA still raises unless a device says
+    CPU."""
+    K, S = lubm_pair
     eng = S.engine("full")
-    eng.use_shard_map = True
-    try:
-        with pytest.raises(NotImplementedError, match="6b"):
-            eng.run(PAPER_QUERIES["Q1"])
-    finally:
-        eng.use_shard_map = False
+    runs0 = eng.cache_stats["group_runs"]
+    got, sel = eng.run(PAPER_QUERIES["Q1"])
+    want, _ = K.query(PAPER_QUERIES["Q1"], select=sel, mode="full")
+    np.testing.assert_array_equal(got, want)
+    assert eng.cache_stats["group_runs"] == runs0 + 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     raw = generate_random_abox(lubm_ontology(), n_instances=20,
                                n_type_triples=20, n_prop_triples=20, seed=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedKB.build(raw, n_shards=2)
-    assert shard_mod._default_shards(torch.device("cpu")) == 1
+    assert shard_mod._resolve_devices(device="cpu") == [torch.device("cpu")]
