@@ -59,6 +59,22 @@ line:
                 scratch build; each card's peak memory; with two cards or
                 more the sharded path's kernels against their plain
                 versions on the last card; the store freed;
+     lubm100_multiprocess — the multi-process runtime: two fresh
+                interpreters of ``repro_torch.launch.distributed_smoke``
+                (two processes sharing ``cuda:0`` under gloo on one card;
+                two cards each under NCCL on four), each holding LUBM-100
+                in 8 shards over its own cards: the topology and the
+                all_reduce, Q4 through the repartition, Q1–Q4 in litemat,
+                full and rewrite (and litemat's scans) equal row for row
+                to the single store's,
+                a sharded-encode ingest against its host-encode control,
+                each child's launches of K1, K2, K4 and K5 or K6 on each of
+                its cards (from what it prints: the parent's counters do
+                not see the children), 200 queries by process 0 alone and
+                by every process at once (q/s each, the fleet's over
+                process 0 alone), each child's peak memory, and the
+                validated ``fleet.json``; a child that fails or outlives
+                its timeout fails the phase;
   6. lubm100_live — the live store at LUBM-100: a 1% insert of a disjoint
                 university, a 0.1% delete, device compaction held bit for
                 bit against host compaction, compact(), then a small insert
@@ -1301,6 +1317,189 @@ def _sharded_device_checks(kb, raw) -> dict:
                                        "kernels": sorted(names)}
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+MULTIPROCESS = 2  # processes of the multi-process phase
+MULTIPROCESS_QUERIES = 200  # queries in each of its throughput loops
+MULTIPROCESS_TIMEOUT_S = 420  # its children are killed past this
+
+
+def _child_steps(log: Path) -> dict:
+    """A child's JSON lines by step."""
+    return {d["step"]: d for d in (json.loads(ln) for ln in
+                                   log.read_text().splitlines()
+                                   if ln.startswith("{"))}
+
+
+def _run_children(cmd: list, work: Path) -> list:
+    """Start ``MULTIPROCESS`` fresh interpreters of ``cmd`` (process r
+    with ``--process-id r``), each writing ``proc{r}.log`` under ``work``;
+    wait until all have ended, one has failed, or ``MULTIPROCESS_TIMEOUT_S``
+    has passed; kill any still running, and require that every one exited
+    0.  Returns each child's steps."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs, logs = [], []
+    try:
+        for r in range(MULTIPROCESS):
+            logs.append(open(work / f"proc{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [*cmd, "--process-id", str(r)], env=env, cwd=ROOT,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MULTIPROCESS_TIMEOUT_S
+        while (any(p.poll() is None for p in procs)
+               and not any(p.returncode for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        tail = (work / f"proc{r}.log").read_text()[-4000:]
+        require(p.returncode == 0,
+                f"process {r} exited {p.returncode} (killed at the "
+                f"{MULTIPROCESS_TIMEOUT_S} s timeout if negative):\n{tail}")
+    return [_child_steps(work / f"proc{r}.log") for r in range(len(procs))]
+
+
+def phase_lubm100_multiprocess(kb, raw):
+    """The multi-process runtime at LUBM-100: two fresh interpreters of
+    ``repro_torch.launch.distributed_smoke`` (the parent's CUDA is already
+    initialized, so no fork), sharing ``cuda:0`` under gloo on one card,
+    or with two cards each under NCCL on four.  Each holds the store in 8
+    shards over its own cards; its Q1–Q4 in three modes (and litemat's
+    scans) equal ``kb``'s
+    (the fresh build of ``raw``) row for row; its launches per card, its
+    throughput alone and beside the other, its peak memory and the fleet
+    snapshot are read from what it writes."""
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import PAPER_QUERIES
+    from repro_torch.launch.distributed_smoke import ANSWER_RUNS, answers_key
+    from repro_torch.obs.export import validate_metrics_snapshot
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    k = max(1, count // MULTIPROCESS)
+    backend = "nccl" if MULTIPROCESS * k <= count else "gloo"
+    work = ROOT / "build" / "multiprocess"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    steps = _run_children(
+        [sys.executable, "-m", "repro_torch.launch.distributed_smoke",
+         "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", str(MULTIPROCESS), "--local-devices", str(k),
+         "--universities", str(LUBM_FULL), "--seed", "0",
+         "--n-shards", str(SHARDS), "--answers-dir", str(work),
+         "--metrics-dir", str(work / "metrics"),
+         "--queries", str(MULTIPROCESS_QUERIES), "--timeout-s", "300"],
+        work)
+    children_s = time.perf_counter() - t_phase
+
+    # topology, the collective, each store on its own cards
+    owned = []
+    for r, st in enumerate(steps):
+        topo, store = st["topology"], st["store"]
+        mine = topo["local_devices"]
+        require(topo["backend"] == backend and topo["world"] == MULTIPROCESS,
+                f"process {r}: {topo}, want {backend}")
+        require(mine == [f"cuda:{(r * k + j) % count}" for j in range(k)],
+                f"process {r} owns {mine}")
+        require(st["collective"]["sum"] == MULTIPROCESS * k,
+                f"process {r}: all_reduce summed {st['collective']}")
+        require(set(store["shard_devices"]) == set(mine)
+                and store["n_shards"] == SHARDS,
+                f"process {r}'s shards sit on {store['shard_devices']}")
+        require(store["raw_triples"] == raw.n_triples,
+                f"process {r} built {store['raw_triples']} triples")
+        require(store["cache_stats"]["repartition_runs"] >= 1,
+                f"process {r}: Q4 took no repartition")
+        require(st["sharded_encode"]["answers"]["Q1"] > 0,
+                f"process {r}: the sharded-encode ingest found no Q1")
+        owned.append(mine)
+
+    # every child's Q1–Q4 in three modes, indexed, and in litemat's
+    # scans: the single store's rows
+    answers = {}
+    files = [np.load(work / f"answers-proc{r}.npz")
+             for r in range(MULTIPROCESS)]
+    try:
+        for mode, use_index in ANSWER_RUNS:
+            for q, pats in PAPER_QUERIES.items():
+                key = answers_key(q, mode, use_index)
+                with uncounted():  # the single store is the check's
+                    want, _ = kb.query(pats, select=_pattern_vars(pats),
+                                       mode=mode, use_index=use_index)
+                for r, f in enumerate(files):
+                    got = f[key]
+                    require(np.array_equal(got, want),
+                            f"process {r} {key}: {got.shape[0]} rows, "
+                            f"the single store {want.shape[0]}")
+                answers[key] = int(want.shape[0])
+    finally:
+        for f in files:
+            f.close()
+
+    # every child launched K1, K2, K4 and K5 or K6 on each of its cards
+    for r, (st, mine) in enumerate(zip(steps, owned)):
+        got = st["done"]["launches_by_device"]
+        for d in mine:
+            per = got.get(d, {})
+            for name in ("compact_mask", "masked_interval_compact",
+                         "member_compact"):
+                require(per.get(name, 0) > 0,
+                        f"process {r} never launched {name} on {d}")
+            require(per.get("merge_path", 0)
+                    + per.get("merge_path_resident", 0) > 0,
+                    f"process {r} never launched K5 or K6 on {d}")
+
+    # throughput: process 0 alone, then every process at once
+    alone = steps[0]["queries_alone"]
+    together = [st["queries_together"] for st in steps]
+    fleet_qps = (sum(t["queries"] for t in together)
+                 / max(t["wall_s"] for t in together))
+
+    # the fleet snapshot process 0 aggregated
+    fleet = json.loads((work / "metrics" / "fleet.json").read_text())
+    errors = validate_metrics_snapshot(fleet)
+    require(not errors, f"fleet.json: {errors}")
+    emit({"phase": "lubm100_multiprocess",
+          "processes": MULTIPROCESS, "backend": backend,
+          "local_devices": owned, "answers": answers,
+          "child_seconds": [st["done"]["seconds"] for st in steps],
+          "child_build_s": [st["store"]["build_s"] for st in steps],
+          "child_generate_s": [st["store"]["generate_s"] for st in steps],
+          "q4_cache_stats": [st["store"]["cache_stats"] for st in steps],
+          "launches_by_process": [st["done"]["launches_by_device"]
+                                  for st in steps],
+          "qps_alone": alone["qps"],
+          "qps_together": [t["qps"] for t in together],
+          "cpu_s_alone": alone["cpu_s"],
+          "cpu_s_together": [t["cpu_s"] for t in together],
+          "fleet_qps": fleet_qps, "fleet_over_alone": fleet_qps
+          / alone["qps"],
+          "query_launches_alone": alone["launches_by_device"],
+          "query_launches_together": [t["launches_by_device"]
+                                      for t in together],
+          "peak_gib_by_process": [st["done"]["peak_gib_by_device"]
+                                  for st in steps],
+          "fleet": {"processes": fleet["processes"],
+                    "combine_runs": steps[0]["fleet"]["combine_runs"],
+                    "fleet_combine_runs":
+                        steps[0]["fleet"]["fleet_combine_runs"]},
+          "children_s": children_s,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def msc_groups(inst, conc, dtb):
@@ -2705,6 +2904,8 @@ def main() -> int:
     drive(launches, phase_lubm100_sharded_devices, kb100, raw,
           need=("compact_mask", "masked_interval_compact", "member_compact",
                 "pair_range"))
+    # the children's launches are theirs: the phase checks what they print
+    drive(launches, phase_lubm100_multiprocess, kb100, raw)
     small_cap = drive(launches, phase_lubm100_live, kb100, raw,
                       need=("compact_mask", "member_compact", "pair_range",
                             "merge_path_resident", "merge_path"))

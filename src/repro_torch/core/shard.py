@@ -37,11 +37,12 @@ co-hashed.
 Placement
 ---------
 Shard i lives on ``devices[i % n]`` (``shard_devices()``): by default
-every visible card, ``cuda:0`` .. ``cuda:{n-1}``; on the CPU the one
-``cpu``.  Each device in use holds a replica of the DeviceTBox and the
-term dictionary; ``devices[0]``, the home device, also holds the global
-encode and the host fold's merges.  Every build, write and query step of
-a shard runs with its device current (``_device_ctx``).
+every visible card, ``cuda:0`` .. ``cuda:{n-1}``, or in a process of the
+multi-process runtime (distributed/runtime.py) that process's own cards;
+on the CPU the one ``cpu``.  Each device in use holds a replica of the
+DeviceTBox and the term dictionary; ``devices[0]``, the home device, also
+holds the global encode and the host fold's merges.  Every build, write
+and query step of a shard runs with its device current (``_device_ctx``).
 
 A group runs on every routed shard at once: each shard's plan is made on
 the host, then every plan body is enqueued on its shard's device with no
@@ -81,6 +82,7 @@ from repro_torch.core.update import (
     DynamicDictionary, affected_instances, encode_delta,
     materialize_delta_mode, mentions_mask,
 )
+from repro_torch.distributed import runtime
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.ledger import LEDGER
@@ -129,10 +131,14 @@ def _resolve_devices(devices=None, device=None) -> list:
     """The store's distinct devices, CUDA ones with their index.
 
     ``devices`` names them; else ``device`` names the one device every
-    shard shares; else every visible card, which must exist (as
+    shard shares; else, in a process of the multi-process runtime, the
+    process's own devices (``runtime.local_devices()``, the reference's
+    ``_local_mesh``); else every visible card, which must exist (as
     ``engine.resolve_device``: CPU callers say so).
     """
-    if devices is None:
+    if devices is None and device is None and runtime.is_initialized():
+        devices = runtime.local_devices()
+    elif devices is None:
         home = resolve_device(device)  # None: CUDA, which must exist
         devices = (range(torch.cuda.device_count())
                    if device is None and home.type == "cuda" else [home])

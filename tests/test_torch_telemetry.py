@@ -41,7 +41,8 @@ from repro_torch.obs.export import (export_mergeable_metrics, export_traces,
 from repro_torch.obs.ledger import ResourceLedger, StorageKey, tensor_record
 from repro_torch.obs.metrics import (REGISTRY, MetricsRegistry, _GROWTH_LOG,
                                      merge_states, summarize_state)
-from repro_torch.obs.slo import SLO, SLOMonitor, TelemetryRollup, _spec
+from repro_torch.obs.slo import (SLO, SLOMonitor, TelemetryRollup, _spec,
+                                 default_serving_slos)
 from repro_torch.obs.trace import Tracer
 from repro_torch.rdf.generator import generate_lubm
 from repro_torch.serving.runtime import ServingRuntime
@@ -492,15 +493,21 @@ def test_monitor_burn_rates_and_state_machine():
                                    window="fast") >= 2.0
 
 
+SLO_LATENCY_S = 30.0  # seconds: no Q4 on a loaded CPU comes near it
+
+
 @pytest.fixture()
 def slo_rt(kbs):
     _, K = kbs
     tracer = Tracer()
     rt = ServingRuntime(K, max_queue=32, tracer=tracer)
     # interval_s is huge: the tests drive tick() by hand so window
-    # contents are deterministic
-    mon = rt.enable_slo_control(interval_s=60.0, fast_window=2,
-                                slow_window=4, min_events=4)
+    # contents are deterministic; the latency SLO stays in the set with a
+    # threshold far above a loaded CPU's Q4, so only the injected faults
+    # move the monitor
+    mon = rt.enable_slo_control(
+        slos=default_serving_slos(latency_threshold_s=SLO_LATENCY_S),
+        interval_s=60.0, fast_window=2, slow_window=4, min_events=4)
     with rt:
         rt.serve(Q4)  # warm the plan before any deadline-bounded traffic
         yield rt, mon, tracer
@@ -535,6 +542,7 @@ def test_slo_loop_tightens_admission_and_recovers(slo_rt):
     assert mon.state == "ok"
     assert rt.admission_bound == b0 and rt.batch_window_s == w0
     assert mon.detail["deadline_miss"]["state"] == "ok"
+    assert mon.detail["latency"]["state"] == "ok"
     # every transition landed as its own schema-valid single-span trace
     trans = [t for t in tracer.finished_traces()
              if t.root.name == "slo_transition"]
@@ -574,6 +582,7 @@ def test_slo_apply_fault_leaves_data_plane_knobs(slo_rt):
             rt.serve(Q4)
         tick()
     assert mon.state == "ok" and rt.admission_bound == b0
+    assert mon.detail["latency"]["state"] == "ok"
 
 
 def test_rollup_rates_are_first_class_series():
