@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --lm-spread N   # only the LM serving checks'
+                                          # readings over N x N seeds
 
 Run from the repository root on a machine with a CUDA device, the CUDA
 toolkit (``nvcc``) and PyTorch built for CUDA.  It imports only
@@ -143,6 +145,25 @@ line:
                 line sums the ten windows.
                 The scratch builds the checks compare against run with the
                 counters set back, so only the main path's launches count.
+ 10. lm       — the LM family, after the LUBM stores are freed (its own
+                window, in which no hand-written kernel may launch):
+                olmo-1b at full width and depth (bf16, remat, naive
+                attention) trained by ``TrainLoop`` for 6 steps of 2 x
+                4,096 tokens (losses and grad norms finite, parameters
+                changed; step ms, tokens/s, the model-FLOP share of the
+                H100's dense bf16 peak, peak memory, a profile of one
+                step), prefilled at 4 x 4,096 (naive and blockwise, held
+                to each other) and decoded 32 greedy steps (the first
+                against a fresh forward over 4,097 tokens; ms a step
+                beside the bytes bound; the device's busy share of an
+                unprofiled step); the five LM archs' reduced configs
+                (float32) on the card against their CPU runs on the same
+                carried weights (each weight's AdamW update held to the
+                CPU's); the resume contract (3 steps,
+                a checkpoint, 3 more, equal bit for bit to 6 steps under
+                deterministic algorithms); ``python -m
+                repro_torch.launch.train`` as a child (exit 0, checkpoints
+                valid, the last logged loss below the first).
 
 Any failed check raises, so the script exits non-zero; the last line,
 printed only when everything passed, is
@@ -2876,7 +2897,551 @@ def phase_kernels(kb1, kb100, launches, small_cap, api):
     emit({"kernels": rows})
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 10: the LM family (no hand-written kernel on its path)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "olmo-1b"  # the largest LM whose training state fits one card
+LM_BATCH, LM_SEQ, LM_STEPS = 2, 4096, 6  # train_4k's sequence, batch cut
+LM_SERVE_BATCH, LM_DECODE = 4, 32
+H100_BF16_FLOPS = 989.4e12  # H100 SXM dense BF16 peak
+LM_LAUNCH_TIMEOUT_S = 300  # the launcher child is killed past this
+GEMM_KERNEL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS's kernels
+# bf16 limits on norm-relative errors (``_norm_rel_err``) at olmo-1b's full
+# width: the blockwise prefill against the naive one (the logits, and each
+# cache layer), and the first decode's logits against a fresh forward.
+# ``python3 chip_smoke.py --lm-spread 3`` (3 weight seeds x 3 prompt seeds,
+# an H100 80GB HBM3 at 700 W) read 0.0171-0.0184 and 0.0158-0.0170: each
+# layer's bf16 roundings differ between the paths and compound over 16
+# layers.  A wrong mask, window or position is an error of order one.
+LM_BLOCKWISE_LIMIT = 0.04
+LM_DECODE_LIMIT = 0.04
+# the reduced archs' train step: below this share of a leaf's largest
+# gradient, a gradient is summation noise and so is the sign of its update
+LM_GRAD_FLOOR = 1e-4
+
+
+def _lm_matrix_flops(cfg, B: int, S: int) -> float:
+    """The matrix products of one remat training step of a dense GQA LM
+    at B x S tokens: 6 N T for the layers' weights and 2 N T more for
+    remat's recompute (N the stacked layers' weights), 6 V d T for the
+    tied logits, and QK^T and PV (4 B H S^2 hd a layer a pass) over the
+    forward, the recompute and the backward's two passes."""
+    T = B * S
+    n = cfg.model_flops_per_token() / 6.0  # embedding excluded
+    attn = 4 * B * cfg.n_heads * S * S * cfg.head_dim * cfg.n_layers
+    return 8 * n * T + 6 * cfg.vocab * cfg.d_model * T + 4 * attn
+
+
+def _lm_device():
+    import torch
+
+    return torch.device("cuda")
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _norm_rel_err(got, want) -> float:
+    """||got - want|| over ||want|| (2-norms over every element), in
+    float32: one rounding more in a large product moves it little."""
+    import torch
+
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+def _blockwise_errors(logits_b, cache_b, logits, cache) -> dict:
+    """The blockwise prefill against the naive one: the logits' error, and
+    each cache's largest error over its layers (each layer against its own
+    scale)."""
+    return {"logits": _norm_rel_err(logits_b, logits),
+            **{k: max(_norm_rel_err(a, b)
+                      for a, b in zip(cache_b[k], cache[k])) for k in cache}}
+
+
+def _decode_errors(lg_dec, lg_full) -> dict:
+    """The first decode's logits against a fresh forward's."""
+    return {"norm_rel_err": _norm_rel_err(lg_dec, lg_full),
+            "max_abs_err": float((lg_dec - lg_full).abs().max()),
+            "rel_err": _rel_err(lg_dec, lg_full),
+            "argmax_agree": float((lg_dec.argmax(-1) == lg_full.argmax(-1))
+                                  .float().mean())}
+
+
+class _Unsaved:
+    """A checkpoint manager that keeps nothing: a full-width checkpoint of
+    olmo-1b is ~14 GB, and the resume contract is checked at the reduced
+    config."""
+
+    def __init__(self):
+        self.saves = []
+
+    def latest_step(self):
+        return None
+
+    def save(self, step, tree, extra=None):
+        self.saves.append(step)
+
+
+def _lm_profile(fn, step_ms: float) -> dict:
+    """torch.profiler over one call of ``fn``: the device time by op (self
+    time of the kernels each aten op launched) and by kernel, the top
+    entries, and the wall time.  The busy share is the device time over
+    ``step_ms``, the wall time of an unprofiled call: the profiler's host
+    tracing stretches the wall it sees."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(_lm_device())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(_lm_device())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda d: -d[1])
+    kernels = sorted(((e.key[:100], e.self_device_time_total / 1e3, e.count)
+                      for e in events if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda d: -d[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    gemm = sum(ms for name, ms, _ in kernels
+               if any(k in name.lower() for k in GEMM_KERNEL_NAMES))
+    return {"profiled_wall_ms": wall_ms, "unprofiled_ms": step_ms,
+            "device_ms": busy,
+            "device_busy_share": busy / step_ms if busy else None,
+            "gemm_kernels_ms": gemm,
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "top_ops_ms": ops[:14], "top_kernels_ms": kernels[:12]}
+
+
+def _lm_train_full(cfg, dev) -> tuple:
+    """olmo-1b at full width and depth: ``TrainLoop`` for LM_STEPS steps
+    at LM_BATCH x LM_SEQ (bf16, remat, naive attention), then one step
+    profiled.  Returns (params, the phase's line)."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.tree import tree_items
+
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, device=dev, seed=0)  # a CUDA generator
+    opt = init_opt_state(params)
+    before = {path: t.to("cpu", copy=True)
+              for path, t in tree_items(params)}
+    step_fn = lm.make_train_step(cfg)
+    step_s, gnorms = [], []
+
+    def timed(p, o, batch):
+        _sync(dev)
+        t = time.perf_counter()
+        p, o, m = step_fn(p, o, batch)
+        _sync(dev)
+        step_s.append(time.perf_counter() - t)
+        gnorms.append(float(m["grad_norm"]))
+        return p, o, m
+
+    stream = TokenStream(cfg.vocab, LM_BATCH, LM_SEQ, seed=1)
+    ckpt = _Unsaved()
+    loop = TrainLoop(timed, stream.batch_at, ckpt, ckpt_every=10**9,
+                     log_every=1, device=dev)
+    params, opt, last, losses = loop.run(params, opt, LM_STEPS, start_step=0)
+    peak = peak_gib()
+    require(last == LM_STEPS and len(losses) == LM_STEPS,
+            f"trained {last} steps, want {LM_STEPS}")
+    require(all(math.isfinite(x) for x in losses + gnorms),
+            f"non-finite loss or grad norm: {losses} {gnorms}")
+    changed = {"/".join(map(str, path)): float((t.cpu() != before[path])
+                                                .float().mean())
+               for path, t in tree_items(params)}
+    require(all(v > 0 for v in changed.values()),
+            f"a parameter never changed: {changed}")
+    del before
+    tokens = LM_BATCH * LM_SEQ
+    med_s = statistics.median(step_s[1:])
+    flops = cfg.model_flops_per_token()
+    matrix = _lm_matrix_flops(cfg, LM_BATCH, LM_SEQ)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in stream.batch_at(LM_STEPS).items()}
+    prof = _lm_profile(lambda: step_fn(params, opt, batch), med_s * 1e3)
+    del opt, batch
+    line = {"phase": "lm_train", "arch": cfg.name, "dtype": cfg.dtype,
+            "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+            "params": cfg.param_count(), "batch": LM_BATCH, "seq": LM_SEQ,
+            "steps": last, "losses": losses, "grad_norms": gnorms,
+            "checkpoint_saves": ckpt.saves,
+            "changed_share_by_leaf": changed, "step_ms": [s * 1e3 for s in
+                                                         step_s],
+            "step_ms_median_last5": med_s * 1e3,
+            "tokens_per_s": tokens / med_s,
+            "model_flops_per_token": flops,
+            "model_tflop_per_step": flops * tokens / 1e12,
+            "model_flop_share_of_bf16_peak": flops * tokens / med_s
+            / H100_BF16_FLOPS,
+            "matrix_tflop_per_step": matrix / 1e12,
+            "matrix_bound_ms": matrix / H100_BF16_FLOPS * 1e3,
+            "peak_gib": peak, "profile_one_step": prof}
+    return params, line
+
+
+def _timed(dev, fn, *args) -> tuple:
+    """``fn(*args)`` and its wall time in ms, the card synced around it."""
+    _sync(dev)
+    t = time.perf_counter()
+    out = fn(*args)
+    _sync(dev)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _lm_serve_first(cfg, params, dev, seed: int) -> dict:
+    """A prompt of LM_SERVE_BATCH x LM_SEQ tokens drawn from ``seed``,
+    prefilled naive and blockwise (after one warm naive prefill: cuBLAS
+    picks its algorithms), then decoded one step; the blockwise prefill
+    held to the naive one and the decode's logits to a fresh forward over
+    LM_SEQ + 1 tokens (``_blockwise_errors``, ``_decode_errors``).  The
+    checks are the caller's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+
+    B, S = LM_SERVE_BATCH, LM_SEQ
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (B, S + 1)), dtype=torch.int32, device=dev)
+    prefill = lm.make_prefill_step(cfg, max_seq=S + LM_DECODE)
+    blockwise = lm.make_prefill_step(
+        dataclasses.replace(cfg, attn_impl="blockwise"), max_seq=S + LM_DECODE)
+    prefill(params, toks[:, :S])
+    (logits_b, cache_b), blockwise_ms = _timed(dev, blockwise, params,
+                                               toks[:, :S])
+    (logits, cache), prefill_ms = _timed(dev, prefill, params, toks[:, :S])
+    block_err = _blockwise_errors(logits_b, cache_b, logits, cache)
+    del logits_b, cache_b
+    (lg_dec, cache), first_ms = _timed(dev, lm.make_decode_step(cfg), params,
+                                       cache, toks[:, S:], S)
+    with torch.no_grad():
+        x, _ = lm.forward(params, toks, cfg)
+        lg_full = lm.logits_fn(x[:, S:S + 1], params["embed"])
+    del x
+    return {"blockwise_vs_naive": block_err,
+            "decode_vs_forward": _decode_errors(lg_dec, lg_full),
+            "prefill_ms": prefill_ms, "prefill_blockwise_ms": blockwise_ms,
+            "decode_first_ms": first_ms, "cache": cache, "logits": lg_dec}
+
+
+def _lm_serve_full(cfg, params, dev) -> dict:
+    """Prefill LM_SERVE_BATCH x LM_SEQ (naive, then blockwise), then
+    LM_DECODE greedy decode steps; the blockwise prefill held to the naive
+    one and the first decode's logits to a fresh forward, under
+    LM_BLOCKWISE_LIMIT and LM_DECODE_LIMIT."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    B, S = LM_SERVE_BATCH, LM_SEQ
+    first = _lm_serve_first(cfg, params, dev, seed=2)
+    block_err, consistency = (first["blockwise_vs_naive"],
+                              first["decode_vs_forward"])
+    for what, err in block_err.items():
+        require(err < LM_BLOCKWISE_LIMIT,
+                f"blockwise prefill {what} off by {err:.3g} (norm-relative, "
+                f"limit {LM_BLOCKWISE_LIMIT})")
+    require(consistency["norm_rel_err"] < LM_DECODE_LIMIT,
+            f"decode at position {S} disagrees with a fresh forward "
+            f"(limit {LM_DECODE_LIMIT}): {consistency}")
+    cache, lg_dec = first["cache"], first["logits"]
+    prefill_ms = first["prefill_ms"]
+    decode = lm.make_decode_step(cfg)
+    tok = lg_dec[:, -1].argmax(-1, keepdim=True).int()
+    steps_ms = []
+    for pos in range(S + 1, S + LM_DECODE):
+        (lg, cache), ms = _timed(dev, decode, params, cache, tok, pos)
+        steps_ms.append(ms)
+        tok = lg[:, -1].argmax(-1, keepdim=True).int()
+    require(bool(torch.isfinite(lg).all()), "non-finite decode logits")
+    dec_ms = statistics.median(steps_ms)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    bound_ms = (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"phase": "lm_serve", "arch": cfg.name, "batch": B, "prompt": S,
+            "max_seq": S + LM_DECODE, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+            "prefill_blockwise_ms": first["prefill_blockwise_ms"],
+            "blockwise_vs_naive_norm_rel_err": block_err,
+            "blockwise_limit": LM_BLOCKWISE_LIMIT,
+            "decode_first_ms": first["decode_first_ms"],
+            "decode_steps": len(steps_ms),
+            "decode_ms_per_step_median": dec_ms,
+            "decode_tokens_per_s": B / dec_ms * 1e3,
+            "decode_bound_ms": bound_ms,
+            "decode_bytes_per_step": weights + cache_bytes,
+            "decode_vs_forward": consistency,
+            "decode_limit": LM_DECODE_LIMIT,
+            "decode_profile_one_step": _lm_profile(
+                lambda: decode(params, cache, tok, S + LM_DECODE - 1),
+                dec_ms),
+            "peak_gib": peak_gib()}
+
+
+def _lm_reduced_run(cfg, w, dev) -> dict:
+    """One prefill, one decode and one train step (AdamW at
+    ``warmup_steps=1``, so the step moves a weight by up to 3e-4, far
+    above float32's resolution) of a reduced arch on ``dev`` from the
+    carried weights ``w``; host tensors out, the parameters and moments
+    under the reference's paths."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.utils.tree import tree_items
+
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             TokenStream(cfg.vocab, 2, 32, seed=3).batch_at(0).items()}
+    p = lm.params_from_reference(w, cfg, dev)
+    logits, cache = lm.make_prefill_step(cfg, max_seq=36)(p, batch["tokens"])
+    nxt = batch["targets"][:, -1:]
+    dlogits, cache = lm.make_decode_step(cfg)(p, cache, nxt, 32)
+    p, opt, m = lm.make_train_step(cfg, AdamWConfig(warmup_steps=1))(
+        p, init_opt_state(p), batch)
+    out = {"logits": logits, "dlogits": dlogits,
+           **{f"cache/{k}": v for k, v in cache.items()},
+           **{f"metric/{k}": v for k, v in m.items()}}
+    out = {k: v.detach().cpu() for k, v in out.items()}
+    for name, tree in (("param", p), ("mu", opt["mu"])):
+        for path, a in tree_items(lm.params_to_reference(tree)):
+            out[name + "/" + "/".join(map(str, path))] = torch.from_numpy(a)
+    return out
+
+
+def _update_err(got, want, old, mu) -> float:
+    """The card's AdamW update ``got - old`` against the CPU's
+    ``want - old``: the largest error over ``1e-3 |want - old|`` plus 4
+    float32 spacings of ``|old|``, over the weights whose CPU gradient
+    (``mu``, its tenth) is zero or above ``LM_GRAD_FLOOR`` of the leaf's
+    largest; the rest are held to two full steps, ``2 lr``.  A value of 1
+    or more fails."""
+    import numpy as np
+    from repro_torch.train.optimizer import AdamWConfig
+
+    old = np.asarray(old, dtype=np.float32)
+    got_d = got.double().numpy() - old
+    want_d = want.double().numpy() - old
+    err = np.abs(got_d - want_d)
+    g = np.abs(mu.numpy())
+    held = (g == 0) | (g > LM_GRAD_FLOOR * g.max())
+    limit = 1e-3 * np.abs(want_d) + 4 * np.spacing(np.abs(old))
+    worst = float((err / limit)[held].max()) if held.any() else 0.0
+    free = float(err[~held].max() / (2 * AdamWConfig().lr)) \
+        if (~held).any() else 0.0
+    return max(worst, free)
+
+
+def _lm_reduced_archs(dev) -> dict:
+    """All five LM archs at their reduced configs (float32): the card's run
+    against the port's CPU run on the same carried weights and batch.
+    Tolerances: logits, caches and metrics rtol=atol=1e-4; each weight's
+    update by ``_update_err``; moments atol 1e-4 of the largest."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import tree_items
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: float32 checks would not be float32")
+    out = {}
+    for arch, mod in ARCHS.items():
+        cfg = mod.reduced_config()
+        w = lm.params_to_reference(lm.init_params(cfg, device="cpu", seed=5))
+        old = {"param/" + "/".join(map(str, path)): a
+               for path, a in tree_items(w)}
+        on_card, on_cpu = (_lm_reduced_run(cfg, w, d)
+                           for d in (dev, torch.device("cpu")))
+        errs = {}
+        for k, want in on_cpu.items():
+            got = on_card[k]
+            group = k.split("/")[0]
+            if group == "param":
+                err = _update_err(got, want, old[k], on_cpu["mu" + k[5:]])
+                ok, group = err < 1.0, "param_update_share_of_limit"
+            else:
+                err = float((got - want).abs().max()) if want.numel() else 0.0
+                ok = (err <= 1e-4 * float(want.abs().max()) if group == "mu"
+                      else torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+            require(ok, f"{arch} {k}: card and CPU differ by {err:.3g}")
+            errs[group] = max(errs.get(group, 0.0), err)
+        out[arch] = {"loss": float(on_card["metric/loss"]), "max_err": errs,
+                     "moe": cfg.moe, "attn": cfg.attn, "window": cfg.window}
+    return out
+
+
+def _lm_resume(dev) -> dict:
+    """olmo reduced on the card, interrupted after step 3 and resumed to 6,
+    against an uninterrupted 6-step run, under deterministic algorithms
+    (cuBLAS's workspace fixed by ``CUBLAS_WORKSPACE_CONFIG``, set before
+    the first product): equal bit for bit."""
+    import shutil
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_arch(LM_ARCH).reduced_config()
+    stream = TokenStream(cfg.vocab, 2, 16, seed=5)
+    step_fn = lm.make_train_step(cfg)
+    work = ROOT / "build" / "lm_resume"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def fresh():
+        p = lm.init_params(cfg, device=dev, seed=0)
+        return p, init_opt_state(p)
+
+    def loop(name, every):
+        return TrainLoop(step_fn, stream.batch_at,
+                         CheckpointManager(work / name), ckpt_every=every,
+                         log_every=1000, device=dev)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        pa, _, _, hist_a = loop("a", 100).run(*fresh(), 6, start_step=0)
+        _, _, s, _ = loop("b", 3).run(*fresh(), 3, start_step=0)
+        pc, oc, s2, hist_c = loop("b", 100).run(*fresh(), 6)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = max(float((a - c).abs().max())
+               for a, c in zip(tree_leaves(pa), tree_leaves(pc)))
+    require(s == 3 and s2 == 6 and int(oc["step"]) == 6,
+            f"resume stopped at {s}, ended at {s2}")
+    require(hist_c == hist_a[3:] and diff == 0.0,
+            f"resumed run differs: losses {hist_c} vs {hist_a[3:]}, "
+            f"parameters by {diff}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"losses": hist_a, "max_param_diff": diff,
+            "deterministic": True}
+
+
+def _lm_launcher(dev) -> dict:
+    """``python -m repro_torch.launch.train`` as a child on the card."""
+    import os
+    import re
+    import shutil
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import init_opt_state
+
+    work = ROOT / "build" / "train_lm"
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_ARCH, "--steps", "100", "--ckpt-dir", str(work)]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=LM_LAUNCH_TIMEOUT_S,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    seconds = time.perf_counter() - t
+    require(out.returncode == 0, f"the launcher exited {out.returncode}:\n"
+                                 f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    losses = [float(x) for x in
+              re.findall(r"^step \d+: loss=([-0-9.naif]+)", out.stdout, re.M)]
+    require(len(losses) == 10 and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0],
+            f"the launcher's logged losses: {losses}")
+    cfg = get_arch(LM_ARCH).reduced_config()
+    mgr = CheckpointManager(work)
+    p = lm.init_params(cfg, device=dev)
+    (_, opt), manifest = mgr.restore((p, init_opt_state(p)))  # hash checked
+    require(mgr.all_steps() == [50, 100] and int(opt["step"]) == 100
+            and manifest["extra"] == {"next_step": 100},
+            f"checkpoints {mgr.all_steps()}, manifest {manifest}")
+    return {"cmd": " ".join(cmd[1:]), "seconds": seconds,
+            "logged_losses": losses, "checkpoints": mgr.all_steps(),
+            "device_line": out.stdout.splitlines()[0]}
+
+
+def phase_lm():
+    """The LM family on the card: olmo-1b trained at full width and depth,
+    prefilled and decoded; the five archs' reduced configs against their
+    CPU runs; the resume contract; the launcher."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+
+    dev = _lm_device()
+    emit({"phase": "lm_start", "memory_allocated_gib":
+          torch.cuda.memory_allocated() / 2**30})
+    cfg = get_arch(LM_ARCH).full_config()
+    params, line = _lm_train_full(cfg, dev)
+    emit(line)
+    emit(_lm_serve_full(cfg, params, dev))
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_reduced", "archs": _lm_reduced_archs(dev)})
+    emit({"phase": "lm_resume", **_lm_resume(dev)})
+    emit({"phase": "lm_launcher", **_lm_launcher(dev)})
+
+
+def lm_spread(n: int) -> None:
+    """The serving checks' readings at olmo-1b's full width over ``n``
+    weight seeds x ``n`` prompt seeds, one line each and their largest:
+    what LM_BLOCKWISE_LIMIT and LM_DECODE_LIMIT are set from."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import lm
+
+    cfg = get_arch(LM_ARCH).full_config()
+    dev = _lm_device()
+    worst = {}
+    for weight_seed in range(n):
+        params = lm.init_params(cfg, device=dev, seed=weight_seed)
+        for prompt_seed in range(2, 2 + n):
+            first = _lm_serve_first(cfg, params, dev, prompt_seed)
+            errs = {**{f"blockwise/{k}": v for k, v in
+                       first["blockwise_vs_naive"].items()},
+                    "decode/norm_rel_err":
+                        first["decode_vs_forward"]["norm_rel_err"]}
+            emit({"phase": "lm_spread", "weight_seed": weight_seed,
+                  "prompt_seed": prompt_seed, **errs,
+                  "decode_argmax_agree":
+                      first["decode_vs_forward"]["argmax_agree"]})
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            del first
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_spread_max", "readings": n * n, **worst})
+
+
+def main(argv: list[str]) -> int:
+    import gc
+    import os
+
+    # the lm phase's resume check runs under deterministic algorithms,
+    # which need cuBLAS's workspace fixed before its first product (the
+    # H100's default size, 8 buffers of 4 MiB)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2886,6 +3451,9 @@ def main() -> int:
     import repro_torch.core.engine  # noqa: F401  (fails outside a checkout)
 
     kind, count = phase_device()
+    if argv[:1] == ["--lm-spread"]:
+        lm_spread(int(argv[1]))
+        return 0
     phase_build()
     launches = {}
     kb1 = drive(launches, phase_lubm1,
@@ -2920,10 +3488,18 @@ def main() -> int:
           need=("compact_mask", "merge_path"))
     del raw
     phase_kernels(kb1, kb100, launches, small_cap, api)
+    del kb1, kb100, api, small_cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_window = {}
+    drive(lm_window, phase_lm)
+    require(not any(lm_window.values()),
+            f"the lm phase launched a hand-written kernel: {lm_window}")
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -59,6 +59,7 @@ from repro_torch.obs.ledger import LEDGER, tensor_record
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.rdf.generator import RawDataset
 from repro_torch.testing import faults
+from repro_torch.device import resolve_device
 
 # The paper's appendix queries (over the LUBM vocabulary).
 PAPER_QUERIES = {
@@ -80,17 +81,6 @@ def _raw_columns(raw):
                 getattr(raw, "term_strings", None))
     s, p, o = raw
     return np.asarray(s), np.asarray(p), np.asarray(o), None
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means CUDA, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU; pass "
-                "device='cpu' explicitly to run its plain versions")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 @dataclass

@@ -69,15 +69,14 @@ from repro_torch.core.dictionary import (
     SENTINEL, sharded_dictionary_fn, table_from_host,
 )
 from repro_torch.core.exchange import all_to_all, device_ctx
-from repro_torch.core.engine import (
-    PAPER_QUERIES, KnowledgeBase, _raw_columns, resolve_device,
-)
+from repro_torch.core.engine import PAPER_QUERIES, KnowledgeBase, _raw_columns
 from repro_torch.core.index import pow2_bucket as _pow2
 from repro_torch.core.materialize import DeviceTBox, compact_rows, lite_materialize
 from repro_torch.core.query import (
     INVALID, Pattern, Relation, distinct, is_var, join, sig_label,
 )
 from repro_torch.core.tbox import TBox, build_tbox
+from repro_torch.device import resolve_device
 from repro_torch.core.update import (
     DynamicDictionary, affected_instances, encode_delta,
     materialize_delta_mode, mentions_mask,
@@ -134,7 +133,7 @@ def _resolve_devices(devices=None, device=None) -> list:
     shard shares; else, in a process of the multi-process runtime, the
     process's own devices (``runtime.local_devices()``, the reference's
     ``_local_mesh``); else every visible card, which must exist (as
-    ``engine.resolve_device``: CPU callers say so).
+    ``device.resolve_device``: CPU callers say so).
     """
     if devices is None and device is None and runtime.is_initialized():
         devices = runtime.local_devices()

@@ -36,7 +36,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.engine import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.obs.aggregate import aggregate
 from repro_torch.obs.export import (export_mergeable_metrics,
                                     validate_metrics_snapshot)
