@@ -164,6 +164,27 @@ line:
                 deterministic algorithms); ``python -m
                 repro_torch.launch.train`` as a child (exit 0, checkpoints
                 valid, the last logged loss below the first).
+  11. gnn      — the GNN family, after the LM (its own window, in which no
+                hand-written kernel may launch): EquiformerV2 at full width
+                (12 layers, C 128, l_max 6, m_max 2, 8 heads) on the
+                molecule shape (128 molecules of 30 atoms and 64 edges),
+                5 SGD steps at lr 1e-6 (losses finite; every weight moved
+                but the |m| > 0 SO(2) weights of the first and last
+                layers, which get no gradient; step ms, peak memory, the
+                model-FLOP share of the float32 peak with TF32 off, a
+                profile of one step), its forward on the first 4
+                molecules against the CPU's on the same weights, the
+                mrestrict variant (restricted rotation and bf16 edges)
+                against the full rotation, and the variants' step ms;
+                SchNet on the molecule shape; GAT and GatedGCN on
+                full_graph_sm (Cora's shape; GAT then 100 steps at lr 0.5,
+                its loss below 0.9 of the first) and on a minibatch_lg
+                block (1,024 seeds, fanouts 15 and 10) that the port's
+                NeighborSampler draws from a reddit-like source graph
+                with its edges cut to a tenth; the four reduced archs
+                against their CPU runs (forward, loss, each weight's SGD
+                update); examples/train_gnn_torch.py as a child (exit 0,
+                the last logged loss below the first).
 
 Any failed check raises, so the script exits non-zero; the last line,
 printed only when everything passed, is
@@ -343,12 +364,17 @@ def peak_gib() -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
+def nvidia_smi() -> str:
+    """The cards' name and power limit as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def phase_device():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -3269,6 +3295,8 @@ def _lm_reduced_archs(dev) -> dict:
             "TF32 matmuls are on: float32 checks would not be float32")
     out = {}
     for arch, mod in ARCHS.items():
+        if mod.FAMILY != "lm":
+            continue
         cfg = mod.reduced_config()
         w = lm.params_to_reference(lm.init_params(cfg, device="cpu", seed=5))
         old = {"param/" + "/".join(map(str, path)): a
@@ -3434,6 +3462,418 @@ def lm_spread(n: int) -> None:
     emit({"phase": "lm_spread_max", "readings": n * n, **worst})
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the GNN family (no hand-written kernel on its path)
+# ---------------------------------------------------------------------------
+
+GNN_STEPS = 5  # SGD steps a timed run takes; the median is of the last 4
+GNN_MOLECULES = 128  # the molecule shape's batch of 30-atom graphs
+GNN_CPU_MOLECULES = 4  # EquiformerV2's forward held to the CPU's on these
+H100_FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+# minibatch_lg's source graph: reddit-like, its 232,965 nodes kept and its
+# 114,615,892 edges cut to a tenth (the block's static shape is the same)
+GNN_SOURCE_EDGES = 11_461_589
+GNN_SEEDS = 1024
+GNN_LEARN_STEPS = 100  # GAT at lr 0.5 must fall below 0.9 of its first loss
+GNN_EXAMPLE_TIMEOUT_S = 300  # the example child is killed past this
+# EquiformerV2 at full width on 4 molecules, the card against the CPU on
+# the same weights (norm-relative, float32, TF32 off): two runs of this
+# phase on an H100 80GB HBM3 at 700 W read 1.38e-6 and 1.32e-6 (sums in
+# another order over 12 layers); a wrong rotation or mask is of order one
+GNN_CARD_CPU_LIMIT = 1e-5
+# the mrestrict variant at full width against the full rotation: the
+# restricted rotation exactly (max over max), bf16 edges within 5%
+GNN_RESTRICT_LIMIT = 1e-5
+GNN_BF16_LIMIT = 0.05
+# EquiformerV2's SGD rate at full width.  At make_gnn_train_step's default
+# of 1e-3 its loss diverges in 5 steps, the reference's too (the full
+# config on the first 4 molecules, the same weights, on the CPU: 29.73,
+# 20,847, 70,599, 6.1e7, nan in both); at 1e-6 it falls (29.73 to 2.03 in
+# 6 steps).  The step's work does not depend on the rate.
+GNN_EQUIFORMER_LR = 1e-6
+GNN_GRAD_FLOOR = 1e-4  # as LM_GRAD_FLOOR, for the reduced archs' SGD step
+GNN_UPDATE_ULPS = 16  # float32 epsilons of a leaf's largest update
+
+
+def _gnn_device():
+    import torch
+
+    return torch.device("cuda")
+
+
+def _gnn_steps(step, params, graph, dev, n: int = GNN_STEPS) -> tuple:
+    """``n`` SGD steps, each timed with the card synced around it:
+    (params, losses, step ms)."""
+    losses, ms = [], []
+    for _ in range(n):
+        (params, loss), t = _timed(dev, step, params, graph)
+        losses.append(float(loss))
+        ms.append(t)
+    return params, losses, ms
+
+
+def _frozen_leaves(before: dict, params) -> list:
+    """The paths of the leaves of ``params`` equal to their host copies in
+    ``before``."""
+    import torch
+    from repro_torch.utils.tree import tree_items
+
+    return sorted("/".join(map(str, path)) for path, t in tree_items(params)
+                  if torch.equal(t.cpu(), before[path]))
+
+
+def _gnn_run(arch: str, shape_id: str, graph, dev, cfg=None,
+             steps: int = GNN_STEPS, profile: bool = False,
+             lr: float = 1e-3) -> tuple:
+    """``steps`` SGD steps of ``make_gnn_train_step`` at ``lr`` at an
+    arch's full config for ``shape_id`` from seed-0 weights: the losses
+    finite, the step ms (median of all but the first), peak GiB since the
+    run began, the analytic model FLOPs and their share of the float32
+    peak.  Returns (params, before, line)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import cells
+    from repro_torch.utils.tree import tree_items, tree_leaves
+
+    mod = get_arch(arch)
+    shp = GNN_SHAPES[shape_id]
+    if cfg is None:
+        cfg = mod.full_config(
+            d_feat=shp["d_feat"], edge_chunks=shp["edge_chunks"],
+            n_classes=shp["n_classes"] if shp["task"] == "cls" else 1)
+    torch.cuda.reset_peak_memory_stats()
+    params = cells._GNN_MODELS[mod.MODEL].init_params(cfg, device=dev, seed=0)
+    before = {path: t.to("cpu", copy=True) for path, t in tree_items(params)}
+    step = cells.make_gnn_train_step(mod.MODEL, cfg, shp["task"], lr=lr)
+    params, losses, ms = _gnn_steps(step, params, graph, dev, steps)
+    peak = peak_gib()
+    require(all(math.isfinite(x) for x in losses),
+            f"{arch} {shape_id}: non-finite loss {losses}")
+    N, E = graph["nodes"].shape[0], graph["edges"].shape[0]
+    flops = cells._gnn_analytic_flops(mod.MODEL, cfg, N, E, shp["d_feat"])
+    med = statistics.median(ms[1:])
+    line = {"phase": "gnn_train", "arch": arch, "shape": shape_id,
+            "config": cfg.name, "lr": lr, "params": sum(t.numel() for t in
+                                              tree_leaves(params)),
+            "nodes": N, "edge_slots": E, "steps": steps, "losses": losses,
+            "step_ms": ms, "step_ms_median": med, "peak_gib": peak,
+            "model_flop_per_step": flops,
+            "model_flop_share_of_fp32_peak": flops / (med / 1e3)
+            / H100_FP32_FLOPS,
+            "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    if profile:
+        line["profile_one_step"] = _lm_profile(lambda: step(params, graph),
+                                               med)
+    return params, before, line
+
+
+def _molecules_graph(n_graphs: int, dev) -> tuple:
+    """The molecule shape's batch (30 atoms, 64 edges a graph, seed 0) on
+    ``dev``, and its first GNN_CPU_MOLECULES graphs on the CPU."""
+    import numpy as np
+    from repro_torch.data.graphs import graph_to_device, make_molecules
+
+    g = make_molecules(n_graphs, 30, 64)
+    k = GNN_CPU_MOLECULES
+    first = {"pos": g["pos"][:30 * k], "species": g["species"][:30 * k],
+             "edges": g["edges"][:64 * k], "batch_seg": g["batch_seg"][:30 * k],
+             "energy": g["energy"][:k], "nodes": g["nodes"][:30 * k]}
+    require(int(np.max(first["edges"])) < 30 * k, "molecules overlap")
+    return graph_to_device(g, dev), first
+
+
+def _gnn_equiformer(dev) -> dict:
+    """EquiformerV2 at full width on the molecule shape: GNN_STEPS SGD
+    steps (finite losses; every weight moved but the |m| > 0 SO(2) weights
+    of the first layer, whose inputs are l = 0 only, and of the last, whose
+    l > 0 outputs never reach the invariant readout), a profiled step, the
+    card's forward on 4 molecules against the CPU's, and the mrestrict
+    variant: its forwards against the full rotation's and its step ms."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_arch, variant_overrides
+    from repro_torch.data.graphs import graph_to_device
+    from repro_torch.models.gnn import equiformer
+    from repro_torch.utils.tree import tree_map
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: float32 numbers would not be float32")
+    graph, first = _molecules_graph(GNN_MOLECULES, dev)
+    params, before, line = _gnn_run("equiformer-v2", "molecule", graph, dev,
+                                    profile=True, lr=GNN_EQUIFORMER_LR)
+    line["gather_ab_49x128"] = _gather_ab(graph["nodes"].shape[0], (49, 128),
+                                          graph["edges"][:, 0], dev)
+    cfg = get_arch("equiformer-v2").full_config()
+    L = cfg.n_layers - 1
+    expect = sorted(f"layers/{i}/so2/m{m}{c}" for i in (0, L)
+                    for m in range(1, cfg.m_max + 1) for c in "ri")
+    frozen = _frozen_leaves(before, params)
+    require(frozen == expect, f"equiformer-v2: unmoved weights {frozen}, "
+                              f"want {expect}")
+    line["unmoved_leaves"] = frozen
+    del before
+    # the card's forward on 4 molecules against the CPU's, same weights
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        on_card = equiformer.forward(params, graph_to_device(first, dev),
+                                     cfg).cpu()
+        on_cpu = equiformer.forward(tree_map(lambda t: t.cpu(), params),
+                                    graph_to_device(first, cpu), cfg)
+    err = _norm_rel_err(on_card, on_cpu)
+    require(bool(torch.isfinite(on_card).all()) and err < GNN_CARD_CPU_LIMIT,
+            f"equiformer-v2 card vs CPU: norm-relative {err:.3g} (limit "
+            f"{GNN_CARD_CPU_LIMIT})")
+    line["card_vs_cpu"] = {"molecules": GNN_CPU_MOLECULES,
+                           "norm_rel_err": err, "rel_err": _rel_err(
+                               on_card, on_cpu),
+                           "limit": GNN_CARD_CPU_LIMIT}
+    # mrestrict at full width: forwards over the whole batch
+    restrict = dataclasses.replace(cfg, rotate_restrict=True)
+    mrestrict = dataclasses.replace(cfg, **variant_overrides("mrestrict",
+                                                             "gnn"))
+    with torch.no_grad():
+        o0 = equiformer.forward(params, graph, cfg)
+        o1 = equiformer.forward(params, graph, restrict)
+        o2 = equiformer.forward(params, graph, mrestrict)
+    r1, r2 = _rel_err(o1, o0), _rel_err(o2, o0)
+    require(r1 < GNN_RESTRICT_LIMIT and 0 < r2 < GNN_BF16_LIMIT,
+            f"mrestrict at full width: restricted {r1:.3g} (limit "
+            f"{GNN_RESTRICT_LIMIT}), bf16 edges {r2:.3g} "
+            f"(limit {GNN_BF16_LIMIT})")
+    del params, o0, o1, o2
+    variants = {"restricted_rel_err": r1, "bf16_edges_rel_err": r2}
+    for name, vcfg in (("rotate_restrict", restrict),
+                       ("mrestrict", mrestrict)):
+        _, _, v = _gnn_run("equiformer-v2", "molecule", graph, dev, cfg=vcfg,
+                           steps=3, lr=GNN_EQUIFORMER_LR)
+        variants[name] = {k: v[k] for k in ("step_ms", "step_ms_median",
+                                            "peak_gib", "losses")}
+    line["variants"] = variants
+    return line
+
+
+def _gnn_full_graph_sm(dev) -> list:
+    """GAT and GatedGCN at full width on Cora's shape (2,708 nodes, 10,556
+    edges, 1,433 features, 7 classes); then GAT trained GNN_LEARN_STEPS
+    steps at lr 0.5, its loss below 0.9 of the first."""
+    from repro_torch.data.graphs import graph_to_device, make_cora_like
+    from repro_torch.launch import cells
+    from repro_torch.models.gnn import gat
+
+    graph = graph_to_device(make_cora_like(), dev)
+    lines = [_gnn_run(a, "full_graph_sm", graph, dev, profile=True)[2]
+             for a in ("gat-cora", "gatedgcn")]
+    cfg = gat.GATConfig(d_in=1433, n_classes=7)
+    step = cells.make_gnn_train_step("gat", cfg, "cls", lr=0.5)
+    _, losses, ms = _gnn_steps(step, gat.init_params(cfg, device=dev, seed=0),
+                               graph, dev, GNN_LEARN_STEPS)
+    require(losses[-1] < 0.9 * losses[0],
+            f"GAT did not learn: {losses[::20]}")
+    lines[0]["learns"] = {"lr": 0.5, "steps": GNN_LEARN_STEPS,
+                          "loss_first": losses[0], "loss_last": losses[-1],
+                          "step_ms_median": statistics.median(ms[1:])}
+    return lines
+
+
+def _gather_ab(rows: int, width: tuple, idx, dev) -> dict:
+    """A gather of ``rows`` x ``width`` float32 rows by ``idx`` and its
+    backward, by event time in turns (A, B, B, A): advanced indexing
+    (``h[idx]``; the backward sorts the indices and one warp accumulates
+    each run of equal ones) against ``index_select`` (the models' gather;
+    the backward is an ``index_add``)."""
+    import torch
+
+    h = torch.randn((rows,) + width, device=dev, requires_grad=True)
+    g = torch.randn((idx.shape[0],) + width, device=dev)
+    fns = {"advanced_index": lambda: torch.autograd.grad(h[idx], h, g),
+           "index_select": lambda: torch.autograd.grad(
+               h.index_select(0, idx), h, g)}
+    out = {"rows_gathered_from_node0": int((idx == 0).sum())}
+    for name in ("advanced_index", "index_select", "index_select",
+                 "advanced_index"):
+        out.setdefault(name + "_ms", []).append(time_ms(fns[name], iters=10))
+    return out
+
+
+def _gnn_minibatch(dev) -> list:
+    """GatedGCN and GAT at full width on minibatch_lg: one padded block
+    (1,024 seeds, fanouts 15 and 10) drawn by the port's NeighborSampler
+    from the reddit-like source graph (edges cut to GNN_SOURCE_EDGES);
+    the gather A/B at the block's width-70 rows (its padded slots all
+    gather from node 0)."""
+    import numpy as np
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data.graphs import (
+        NeighborSampler, block_shape_for, graph_to_device, make_reddit_like,
+    )
+
+    shp = GNN_SHAPES["minibatch_lg"]
+    t = time.perf_counter()
+    src = make_reddit_like(n_nodes=shp["src_nodes"],
+                           n_edges=GNN_SOURCE_EDGES, d_feat=shp["d_feat"])
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sampler = NeighborSampler(src["edges"], shp["src_nodes"], seed=0)
+    csr_s = time.perf_counter() - t
+    seeds = np.random.default_rng(0).choice(shp["src_nodes"], GNN_SEEDS,
+                                            replace=False).astype(np.int32)
+    nb, eb = block_shape_for(GNN_SEEDS, shp["fanouts"])
+    t = time.perf_counter()
+    block = sampler.padded_block(seeds, shp["fanouts"], nb, eb, src["nodes"],
+                                 src["labels"])
+    sample_s = time.perf_counter() - t
+    del src, sampler
+    valid = int(((block["edges"][:, 0] >= 0)
+                 & (block["edges"][:, 1] >= 0)).sum())
+    require(block["nodes"].shape == (169_984, 602) and eb == 168_960
+            and block["edges"].shape == (eb, 2) and valid > 0,
+            f"block {block['nodes'].shape} {block['edges'].shape}")
+    graph = graph_to_device(block, dev)
+    host = {"source_edges": GNN_SOURCE_EDGES, "source_nodes": shp["src_nodes"],
+            "generate_s": gen_s, "csr_s": csr_s, "sample_block_s": sample_s,
+            "valid_edges": valid, "seeds": GNN_SEEDS,
+            "gather_ab_width_70": _gather_ab(
+                nb, (70,), graph["edges"][:, 0].clamp(min=0), dev)}
+    lines = []
+    for arch in ("gatedgcn", "gat-cora"):
+        line = _gnn_run(arch, "minibatch_lg", graph, dev, profile=True)[2]
+        line["block"] = host
+        lines.append(line)
+    return lines
+
+
+def _sgd_update_err(got, old_got, want, old_want) -> float:
+    """The card's SGD update ``got - old_got`` against the CPU's ``want -
+    old_want``: the largest error over ``1e-3 |want update|`` plus 4
+    float32 spacings of ``|old|`` and GNN_UPDATE_ULPS epsilons of the
+    leaf's largest update, over the weights whose CPU gradient is zero or
+    above GNN_GRAD_FLOOR of the leaf's largest; the rest are held to two
+    steps' ``2 lr``.  A value of 1 or more fails."""
+    import numpy as np
+
+    old = old_want.double().numpy()
+    want_d = want.double().numpy() - old
+    got_d = got.double().numpy() - old_got.double().numpy()
+    err = np.abs(got_d - want_d)
+    g = np.abs(want_d)
+    held = (g == 0) | (g > GNN_GRAD_FLOOR * g.max())
+    limit = (1e-3 * g + 4 * np.spacing(np.abs(old).astype(np.float32))
+             + GNN_UPDATE_ULPS * np.finfo(np.float32).eps * g.max())
+    worst = float((err / limit)[held].max()) if held.any() else 0.0
+    free = float(err[~held].max() / 2e-3) if (~held).any() else 0.0
+    return max(worst, free)
+
+
+def _gnn_reduced_archs(dev) -> dict:
+    """The four GNN archs' reduced configs on the reference smoke test's
+    graphs: forward, unified loss and one SGD step on the card against the
+    port's CPU run from the same weights (outputs and loss rtol=atol=1e-4;
+    each weight's update by ``_sgd_update_err``)."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.graphs import (
+        graph_to_device, make_cora_like, make_molecules,
+    )
+    from repro_torch.launch import cells
+    from repro_torch.models.gnn import common
+    from repro_torch.utils.tree import tree_items
+
+    out = {}
+    for arch, mod in ARCHS.items():
+        if mod.FAMILY != "gnn":
+            continue
+        if mod.MODEL in ("schnet", "equiformer"):
+            task, cfg, g = "reg", mod.reduced_config(), make_molecules(4, 8, 16)
+        else:
+            task, cfg = "cls", mod.reduced_config(d_feat=64, n_classes=7)
+            g = make_cora_like(n_nodes=120, n_edges=480, d_feat=64, seed=2)
+        model = cells._GNN_MODELS[mod.MODEL]
+        w = common.params_to_reference(model.init_params(cfg, device="cpu",
+                                                         seed=5))
+        step = cells.make_gnn_train_step(mod.MODEL, cfg, task)
+        runs = {}
+        for d in (dev, torch.device("cpu")):
+            p = model.params_from_reference(w, cfg, d)
+            graph = graph_to_device(g, d)
+            with torch.no_grad():
+                fwd = model.forward(p, graph, cfg).cpu()
+                loss = cells.gnn_unified_loss(mod.MODEL, p, graph, cfg,
+                                              task).cpu()
+            p1, _ = step(p, graph)
+            runs[d.type] = (fwd, loss, dict(tree_items(p)),
+                            dict(tree_items(p1)))
+        (f1, l1, q0, q1), (f0, l0, c0, c1) = runs[dev.type], runs["cpu"]
+        require(torch.allclose(f1, f0, rtol=1e-4, atol=1e-4)
+                and torch.allclose(l1, l0, rtol=1e-4, atol=1e-4),
+                f"{arch}: card and CPU differ by {float((f1 - f0).abs().max())}"
+                f" (forward), {float((l1 - l0).abs())} (loss)")
+        upd = max(_sgd_update_err(q1[k].cpu(), q0[k].cpu(), c1[k], c0[k])
+                  for k in c1)
+        require(upd < 1.0, f"{arch}: the card's update off by {upd:.3g} of "
+                           f"its limit")
+        out[arch] = {"loss": float(l1), "forward_max_err":
+                     float((f1 - f0).abs().max()),
+                     "loss_err": float((l1 - l0).abs()),
+                     "update_share_of_limit": upd}
+    return out
+
+
+def _gnn_example(dev) -> dict:
+    """``examples/train_gnn_torch.py --steps 50`` as a child on the card:
+    exit 0, the interval filter's line, the last logged loss below the
+    first."""
+    import os
+    import re
+
+    cmd = [sys.executable, str(ROOT / "examples" / "train_gnn_torch.py"),
+           "--steps", "50"]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=GNN_EXAMPLE_TIMEOUT_S,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    seconds = time.perf_counter() - t
+    require(out.returncode == 0, f"the example exited {out.returncode}:\n"
+                                 f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    losses = [float(x) for x in
+              re.findall(r"^step +\d+: loss=([-0-9.naif]+)", out.stdout, re.M)]
+    require(out.stdout.startswith("semantic filter relatedTo: kept ")
+            and len(losses) == 3 and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0],
+            f"the example's output: {out.stdout[-2000:]}")
+    return {"cmd": " ".join(cmd[1:]), "seconds": seconds,
+            "logged_losses": losses,
+            "filter_line": out.stdout.splitlines()[0]}
+
+
+def phase_gnn():
+    """The GNN family on the card: EquiformerV2 at full width on the
+    molecule shape (steps, profile, card vs CPU, mrestrict), SchNet on the
+    molecule shape, GAT and GatedGCN on full_graph_sm and minibatch_lg,
+    the reduced archs against their CPU runs, and the GAT example."""
+    import torch
+
+    dev = _gnn_device()
+    card = nvidia_smi()
+
+    def report(line: dict) -> None:  # each line names the card
+        emit({**line, "card": card})
+
+    report({"phase": "gnn_start", "memory_allocated_gib":
+            torch.cuda.memory_allocated() / 2**30})
+    report(_gnn_equiformer(dev))
+    torch.cuda.empty_cache()
+    graph, _ = _molecules_graph(GNN_MOLECULES, dev)
+    report(_gnn_run("schnet", "molecule", graph, dev, profile=True)[2])
+    del graph
+    for line in _gnn_full_graph_sm(dev) + _gnn_minibatch(dev):
+        report(line)
+    torch.cuda.empty_cache()
+    report({"phase": "gnn_reduced", "archs": _gnn_reduced_archs(dev)})
+    report({"phase": "gnn_example", **_gnn_example(dev)})
+
+
 def main(argv: list[str]) -> int:
     import gc
     import os
@@ -3496,6 +3936,12 @@ def main(argv: list[str]) -> int:
     drive(lm_window, phase_lm)
     require(not any(lm_window.values()),
             f"the lm phase launched a hand-written kernel: {lm_window}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn_window = {}
+    drive(gnn_window, phase_gnn)
+    require(not any(gnn_window.values()),
+            f"the gnn phase launched a hand-written kernel: {gnn_window}")
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0

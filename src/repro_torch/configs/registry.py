@@ -1,16 +1,19 @@
 """Architecture registry: --arch <id> resolution for launchers and tests.
 
-The LM architectures only: the GNN family's ids are unknown here until
-its models are ported (``get_arch`` raises the reference's ``KeyError``
-for them)."""
+The nine architectures in the reference's order: the LM family's five
+and the GNN family's four."""
 from __future__ import annotations
 
 from repro_torch.configs import (
-    deepseek_v2_236b, gemma3_12b, gemma_2b, olmo_1b, olmoe_1b_7b,
+    deepseek_v2_236b, equiformer_v2, gat_cora, gatedgcn, gemma3_12b,
+    gemma_2b, olmo_1b, olmoe_1b_7b, schnet,
 )
 from repro_torch.configs.shapes import GNN_SHAPES, LM_SHAPES
 
-_MODULES = [olmo_1b, gemma_2b, gemma3_12b, olmoe_1b_7b, deepseek_v2_236b]
+_MODULES = [
+    olmo_1b, gemma_2b, gemma3_12b, olmoe_1b_7b, deepseek_v2_236b,
+    equiformer_v2, gat_cora, gatedgcn, schnet,
+]
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
 

@@ -48,6 +48,27 @@ def to_torch(arr, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def carry_tree(tree, template, device):
+    """``tree``'s host leaves (a reference's parameter or state tree) as
+    tensors on ``device`` in ``template``'s structure; every path, shape
+    and dtype must be the template's.  Each leaf is a copy
+    (``to_torch``): it never aliases its array."""
+    want = dict(tree_items(template))
+    got = dict(tree_items(tree))
+    if want.keys() != got.keys():
+        raise ValueError(f"tree paths differ: "
+                         f"{sorted(map(str, want.keys() ^ got.keys()))}")
+    out = []
+    for path, leaf in want.items():
+        t = to_torch(got[path], device)
+        if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
+            raise ValueError(f"{'/'.join(map(str, path))}: {tuple(t.shape)} "
+                             f"{t.dtype}, want {tuple(leaf.shape)} "
+                             f"{leaf.dtype}")
+        out.append(t)
+    return tree_unflatten(template, out)
+
+
 def _key(path) -> str:
     return "/".join(str(p) for p in path)
 

@@ -34,7 +34,8 @@ def main(argv=None):
 
     mod = get_arch(args.arch)
     if mod.FAMILY != "lm":
-        raise SystemExit("launch.train drives LM archs")
+        raise SystemExit("launch.train drives LM archs; for a GNN see "
+                         "examples/train_gnn_torch.py")
     cfg = mod.reduced_config()
     device = resolve_device(args.device)
     print(f"training {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "

@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.checkpoint import to_numpy, to_torch
+from repro_torch.distributed.checkpoint import carry_tree, to_numpy, to_torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
@@ -153,31 +153,12 @@ def init_params(cfg: LMConfig, device=None, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _carry(tree, template, device):
-    """``tree``'s numpy leaves as tensors on ``device`` in ``template``'s
-    structure; every path, shape and dtype must be the template's."""
-    want = dict(tree_items(template))
-    got = dict(tree_items(tree))
-    if want.keys() != got.keys():
-        raise ValueError(f"tree paths differ: "
-                         f"{sorted(map(str, want.keys() ^ got.keys()))}")
-    out = []
-    for path, leaf in want.items():
-        t = to_torch(got[path], device)
-        if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
-            raise ValueError(f"{'/'.join(map(str, path))}: {tuple(t.shape)} "
-                             f"{t.dtype}, want {tuple(leaf.shape)} "
-                             f"{leaf.dtype}")
-        out.append(t)
-    return tree_unflatten(template, out)
-
-
 def params_from_reference(tree, cfg: LMConfig, device=None):
     """The reference's parameter tree (numpy leaves, ``layers`` stacked,
     ``dense`` a list; bfloat16 leaves as ml_dtypes arrays or raw 2-byte
     words) as the port's, on ``device`` (None: CUDA).  Paths, shapes and
     dtypes must be ``cfg``'s."""
-    return _carry(tree, init_params(cfg, device="meta"),
+    return carry_tree(tree, init_params(cfg, device="meta"),
                   resolve_device(device))
 
 
@@ -196,8 +177,8 @@ def opt_state_from_reference(state, cfg: LMConfig, device=None):
                                          device="meta"),
                    init_params(cfg, device="meta"))
     step = to_torch(state["step"], device, torch.int32)
-    return {"mu": _carry(state["mu"], f32, device),
-            "nu": _carry(state["nu"], f32, device), "step": step}
+    return {"mu": carry_tree(state["mu"], f32, device),
+            "nu": carry_tree(state["nu"], f32, device), "step": step}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ JAX nor the reference package.
 
 One fresh interpreter, in which ``import jax`` and ``import repro`` fail
 (``sys.modules`` entries set to None), imports every module of the port
-(walked with ``pkgutil``) and then ``chip_smoke``.
+(walked with ``pkgutil``), then ``chip_smoke`` and the port's examples
+(``examples/*_torch.py``, their ``main`` not run).
 """
 from __future__ import annotations
 
@@ -26,6 +27,11 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+import importlib.util, pathlib
+for path in sorted(pathlib.Path(sys.argv[1], "examples").glob("*_torch.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append("examples/" + path.name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
@@ -46,4 +52,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_reference():
             "repro_torch.models.lm", "repro_torch.models.moe",
             "repro_torch.train.loop", "repro_torch.configs.registry",
             "repro_torch.distributed.checkpoint",
-            "repro_torch.launch.train"} <= set(seen["modules"])
+            "repro_torch.launch.train", "repro_torch.launch.cells",
+            "repro_torch.data.graphs", "repro_torch.models.gnn.equiformer",
+            "repro_torch.models.gnn.so3", "examples/train_gnn_torch.py",
+            "examples/quickstart_torch.py"} <= set(seen["modules"])
