@@ -185,6 +185,31 @@ line:
                 against their CPU runs (forward, loss, each weight's SGD
                 update); examples/train_gnn_torch.py as a child (exit 0,
                 the last logged loss below the first).
+  12. cells    — the dry-run tooling, after the GNN family (its own window,
+                in which no hand-written kernel may launch): a child on the
+                host (``python -m repro_torch.launch.dry_run --cells chip``,
+                the card hidden from it) runs ``analyze_step`` on meta
+                DTensors over fake groups for olmoe-1b-7b train_4k on
+                (2, 2, 2), every LM's train_4k and every GNN cell on
+                (16, 16) (ogb_products included: dry run only) and
+                deepseek-v2-236b train_4k on (2, 16, 16), one line a cell
+                (per-rank FLOPs, their ratio to model_flops / n, HBM
+                bytes, collective bytes by kind, seconds); meanwhile
+                olmo-1b train_4k through ``build_cell`` on a (1, 1) mesh
+                of the card (phase lm's cut, weights and batch) against
+                the plain step (loss, first moments, step ms of both);
+                with four cards, ``python -m
+                repro_torch.launch.sharded_smoke`` as a child: olmoe-1b-7b
+                train_4k at its full config on a (2, 2) mesh of four
+                processes over NCCL, the global batch cut to 4 (losses
+                finite, the first within CELLS_LOSS_LIMIT of the whole
+                model's forward on one card, the per-rank FLOPs and
+                collective bytes of the real step equal to the dry run's,
+                step ms, peak GiB a card, NCCL's share of a profiled
+                step's device time), and GatedGCN on phase gnn's block
+                with its node rows split over the four (its losses equal
+                to the single card's); with fewer cards a line says what
+                did not run.
 
 Any failed check raises, so the script exits non-zero; the last line,
 printed only when everything passed, is
@@ -3697,16 +3722,14 @@ def _gather_ab(rows: int, width: tuple, idx, dev) -> dict:
     return out
 
 
-def _gnn_minibatch(dev) -> list:
-    """GatedGCN and GAT at full width on minibatch_lg: one padded block
-    (1,024 seeds, fanouts 15 and 10) drawn by the port's NeighborSampler
-    from the reddit-like source graph (edges cut to GNN_SOURCE_EDGES);
-    the gather A/B at the block's width-70 rows (its padded slots all
-    gather from node 0)."""
+def _minibatch_block() -> tuple:
+    """The minibatch_lg block (1,024 seeds, fanouts 15 and 10) drawn by the
+    port's NeighborSampler from the reddit-like source graph (edges cut to
+    GNN_SOURCE_EDGES), as numpy arrays: (block, host timings)."""
     import numpy as np
     from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.data.graphs import (
-        NeighborSampler, block_shape_for, graph_to_device, make_reddit_like,
+        NeighborSampler, block_shape_for, make_reddit_like,
     )
 
     shp = GNN_SHAPES["minibatch_lg"]
@@ -3730,12 +3753,23 @@ def _gnn_minibatch(dev) -> list:
     require(block["nodes"].shape == (169_984, 602) and eb == 168_960
             and block["edges"].shape == (eb, 2) and valid > 0,
             f"block {block['nodes'].shape} {block['edges'].shape}")
+    return block, {"source_edges": GNN_SOURCE_EDGES,
+                   "source_nodes": shp["src_nodes"], "generate_s": gen_s,
+                   "csr_s": csr_s, "sample_block_s": sample_s,
+                   "valid_edges": valid, "seeds": GNN_SEEDS}
+
+
+def _gnn_minibatch(dev) -> list:
+    """GatedGCN and GAT at full width on minibatch_lg: one padded block
+    (``_minibatch_block``); the gather A/B at the block's width-70 rows
+    (its padded slots all gather from node 0)."""
+    from repro_torch.data.graphs import graph_to_device
+
+    block, host = _minibatch_block()
     graph = graph_to_device(block, dev)
-    host = {"source_edges": GNN_SOURCE_EDGES, "source_nodes": shp["src_nodes"],
-            "generate_s": gen_s, "csr_s": csr_s, "sample_block_s": sample_s,
-            "valid_edges": valid, "seeds": GNN_SEEDS,
-            "gather_ab_width_70": _gather_ab(
-                nb, (70,), graph["edges"][:, 0].clamp(min=0), dev)}
+    host["gather_ab_width_70"] = _gather_ab(
+        block["nodes"].shape[0], (70,), graph["edges"][:, 0].clamp(min=0),
+        dev)
     lines = []
     for arch in ("gatedgcn", "gat-cora"):
         line = _gnn_run(arch, "minibatch_lg", graph, dev, profile=True)[2]
@@ -3874,6 +3908,236 @@ def phase_gnn():
     report({"phase": "gnn_example", **_gnn_example(dev)})
 
 
+CELLS_LOSS_LIMIT = 1e-2  # the sharded olmoe-1b-7b's first loss (bf16)
+# olmo-1b's step through build_cell on a (1, 1) mesh against the plain step
+# (the same products on one card: only DTensor's dispatch differs)
+CELLS_ONE_LOSS_LIMIT = 1e-3
+CELLS_ONE_MU_LIMIT = 1e-2  # norm-relative, the first moments
+CELLS_GNN_LIMIT = 1e-5  # float32 sums in another order
+CELLS_OLMOE_BATCH = 4  # train_4k's global batch of 256 cut to 4
+CELLS_STEPS = 3
+CELLS_DRY_TIMEOUT_S = 900
+CELLS_FOUR_TIMEOUT_S = 900
+
+
+def _cells_env() -> dict:
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "OMP_NUM_THREADS": "4"}
+
+
+def _cells_dry_runs(work: Path):
+    """Start the dry-run child (on the host: the card hidden from it)."""
+    out = open(work / "dry_run.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dry_run", "--cells",
+         "chip"], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+        env={**_cells_env(), "CUDA_VISIBLE_DEVICES": ""})
+    return proc, out
+
+
+def _cells_wait(proc, out, log: Path, timeout: float) -> list:
+    """The child's JSON lines; a failure or a timeout fails the phase."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out.close()
+    text = log.read_text()
+    require(proc.returncode == 0,
+            f"{log.name}: exit {proc.returncode}:\n{text[-3000:]}")
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def _cells_one_card(dev) -> dict:
+    """olmo-1b train_4k through ``build_cell`` on a (1, 1) mesh of the card
+    (a group of one over NCCL) against the plain step: phase lm's cut
+    (LM_BATCH x LM_SEQ), weights (seed 0) and first batch."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import cells
+    from repro_torch.launch.dry_run import with_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        cell = with_batch(cells.build_cell(LM_ARCH, "train_4k", mesh),
+                          LM_BATCH)
+        cfg = get_arch(LM_ARCH).full_config()
+        params = lm.init_params(cfg, device=dev, seed=0)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in TokenStream(
+            cfg.vocab, LM_BATCH, LM_SEQ, seed=1).batch_at(0).items()}
+        plain = lm.make_train_step(cfg)
+        p0 = tree_map(lambda t: t.clone(), params)
+        o0 = init_opt_state(p0)
+        p1 = cells.place(params, cell.in_specs[0], mesh)
+        del params
+        o1 = init_opt_state(p1)
+        b1 = cells.place(batch, cell.in_specs[2], mesh)
+        ms = {"plain": [], "build_cell": []}
+        for _ in range(2):  # the first of each is the reading held
+            (p0, o0, m0), t0 = _timed(dev, plain, p0, o0, batch)
+            (p1, o1, m1), t1 = _timed(dev, cell.fn, p1, o1, b1)
+            ms["plain"].append(t0)
+            ms["build_cell"].append(t1)
+            if len(ms["plain"]) == 1:
+                l0, l1 = float(m0["loss"]), float(m1["loss"])
+                mu = max(_norm_rel_err(a.full_tensor(), b) for a, b in zip(
+                    tree_leaves(o1["mu"]), tree_leaves(o0["mu"])))
+                dp = max(float((a.full_tensor().float() - b.float()).abs()
+                               .max()) for a, b in zip(tree_leaves(p1),
+                                                       tree_leaves(p0)))
+        rel = abs(l1 - l0) / abs(l0)
+        require(math.isfinite(l1) and rel <= CELLS_ONE_LOSS_LIMIT,
+                f"olmo-1b via build_cell: loss {l1} vs the plain step's {l0}")
+        require(mu <= CELLS_ONE_MU_LIMIT,
+                f"olmo-1b via build_cell: first moments off by {mu:.3g}")
+        del p0, o0, p1, o1
+    finally:
+        dist.destroy_process_group()
+    return {"arch": LM_ARCH, "mesh": [1, 1], "batch": LM_BATCH,
+            "seq": LM_SEQ, "loss_plain": l0, "loss_build_cell": l1,
+            "loss_rel_diff": rel, "mu_norm_rel_err": mu,
+            "params_max_abs_diff": dp, "step_ms": ms,
+            "limits": {"loss": CELLS_ONE_LOSS_LIMIT,
+                       "mu": CELLS_ONE_MU_LIMIT}}
+
+
+def _cells_gnn_single(block: dict, dev, steps: int) -> list:
+    """GatedGCN's losses on the block on one card (phase gnn's run:
+    seed-0 weights, lr 1e-3)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data.graphs import graph_to_device
+    from repro_torch.launch import cells
+    from repro_torch.models.gnn import gatedgcn
+
+    shp = GNN_SHAPES["minibatch_lg"]
+    cfg = get_arch("gatedgcn").full_config(
+        d_feat=shp["d_feat"], n_classes=shp["n_classes"],
+        edge_chunks=shp["edge_chunks"])
+    graph = graph_to_device(block, dev)
+    params = gatedgcn.init_params(cfg, device=dev, seed=0)
+    step = cells.make_gnn_train_step("gatedgcn", cfg, shp["task"])
+    losses = []
+    for _ in range(steps):
+        params, loss = step(params, graph)
+        losses.append(float(loss))
+    return losses
+
+
+def _cells_four_start(dev, work: Path) -> dict:
+    """Phase gnn's block saved for the four-card child, GatedGCN's losses
+    on it on one card, and the child (``launch/sharded_smoke.py``)
+    started."""
+    import numpy as np
+    import torch
+
+    block, host = _minibatch_block()
+    np.savez(work / "block.npz", **{k: v for k, v in block.items()
+                                    if isinstance(v, np.ndarray)})
+    single = _cells_gnn_single(block, dev, 2)
+    del block
+    torch.cuda.empty_cache()
+    log = work / "sharded_smoke.log"
+    out = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sharded_smoke",
+         "--world", "4", "--batch", str(CELLS_OLMOE_BATCH), "--steps",
+         str(CELLS_STEPS), "--block", str(work / "block.npz"),
+         "--gnn-steps", "2"], cwd=ROOT, stdout=out,
+        stderr=subprocess.STDOUT, env=_cells_env())
+    return {"proc": proc, "out": out, "log": log, "single": single,
+            "host": host, "t0": time.perf_counter()}
+
+
+def _cells_four_finish(run: dict, predicted: dict) -> dict:
+    """The four-card child's lines and their checks."""
+    lines = {d["step"]: d for d in _cells_wait(
+        run["proc"], run["out"], run["log"], CELLS_FOUR_TIMEOUT_S)}
+    child_s = time.perf_counter() - run["t0"]
+    lm_line, gnn, single = lines["olmoe"], lines["gatedgcn"], run["single"]
+    require(lm_line["finite"], f"olmoe-1b-7b losses {lm_line['losses']}")
+    require(lm_line["first_loss_rel_diff"] <= CELLS_LOSS_LIMIT,
+            f"olmoe-1b-7b: the sharded first loss {lm_line['losses'][0]} vs "
+            f"the whole model's {lm_line['whole_model_loss']}")
+    got = lm_line["counted"]
+    require(got["flops"] == predicted["flops"]
+            and got["collectives"] == predicted["collectives"],
+            f"olmoe-1b-7b: counted {got['flops']} {got['collectives']} vs "
+            f"the dry run's {predicted['flops']} {predicted['collectives']}")
+    gnn_rel = [abs(a - b) / abs(b) for a, b in zip(gnn["losses"], single)]
+    require(gnn_rel[0] <= CELLS_GNN_LIMIT,
+            f"GatedGCN sharded {gnn['losses']} vs one card {single}")
+    return {"ran": True, "child_s": child_s, "olmoe": lm_line,
+            "olmoe_predicted": {k: predicted[k] for k in (
+                "flops", "collectives", "hbm_bytes", "flops_ratio")},
+            "gatedgcn": {**gnn, "single_card_losses": single,
+                         "rel_diff": gnn_rel, "block": run["host"]},
+            "limits": {"first_loss": CELLS_LOSS_LIMIT,
+                       "gatedgcn": CELLS_GNN_LIMIT}}
+
+
+def phase_cells():
+    """The dry-run tooling (see the module docstring, phase 12)."""
+    import torch
+
+    dev = _gnn_device()
+    card = nvidia_smi()
+    count = torch.cuda.device_count()
+    work = ROOT / "build" / "cells"
+    work.mkdir(parents=True, exist_ok=True)
+    dry, dry_out = _cells_dry_runs(work)
+    four_run = None
+    try:
+        one = _cells_one_card(dev)
+        emit({"phase": "cells_one_card", **one, "card": card})
+        torch.cuda.empty_cache()
+        if count >= 4:
+            four_run = _cells_four_start(dev, work)
+        dry_lines = _cells_wait(dry, dry_out, work / "dry_run.log",
+                                CELLS_DRY_TIMEOUT_S)
+        four = None
+        if four_run is not None:
+            pred = next(d["dry_run"] for d in dry_lines
+                        if d["dry_run"]["mesh"] == [2, 2])
+            four = _cells_four_finish(four_run, pred)
+    finally:
+        for p in (dry, four_run and four_run["proc"]):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+    for d in dry_lines:
+        r = d["dry_run"]
+        emit({"phase": "cells_dry_run", **r,
+              **({"note": "dry run only: at full width EquiformerV2's "
+                  "node features alone are ~61 GB"}
+                 if r["shape"] == "ogb_products" else {})})
+    if four is None:
+        emit({"phase": "cells_four_cards", "ran": False, "cards": count,
+              "not_run": ["olmoe-1b-7b train_4k on a (2, 2) mesh of four "
+                          "cards (batch 4)", "GatedGCN's minibatch_lg "
+                          "block sharded over four cards"],
+              "why": f"{count} card(s); the part needs 4", "card": card})
+    else:
+        emit({"phase": "cells_four_cards", **four, "card": card})
+
+
 def main(argv: list[str]) -> int:
     import gc
     import os
@@ -3942,6 +4206,12 @@ def main(argv: list[str]) -> int:
     drive(gnn_window, phase_gnn)
     require(not any(gnn_window.values()),
             f"the gnn phase launched a hand-written kernel: {gnn_window}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells_window = {}
+    drive(cells_window, phase_cells)
+    require(not any(cells_window.values()),
+            f"the cells phase launched a hand-written kernel: {cells_window}")
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})
     return 0

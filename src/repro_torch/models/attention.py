@@ -4,6 +4,12 @@ Attention is computed as the reference computes it: einsums and a
 float32 softmax (``NEG_INF`` on masked scores, the weights cast to the
 values' dtype before the PV product).  Decode steps write the new key
 and value into the cache in place.
+
+On DTensors (a sharded step) the projections stay DTensor ops and the
+attention core between them (RoPE, scores, softmax, PV) runs as a local
+region on each rank's batch rows and heads (``_local_core``), which needs
+no collective: DTensor's own propagation through the core's batched
+products is slow and picks layouts that move the scores.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharded as shd
 from repro_torch.models.layers import apply_rope, normal
 
 NEG_INF = -1e30
@@ -118,10 +125,23 @@ def gqa_forward_flagged(params, x, positions, window: int, is_global: bool,
     """Training/prefill attention; ``window > 0`` and not ``is_global``
     means sliding-window causal, so one layer stack can interleave window
     patterns (gemma3)."""
-    S = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if shd.is_dtensor(q):
+        (out, k, v) = _local_core(
+            lambda q_, k_, v_, pos: _gqa_core(q_, k_, v_, pos, window,
+                                              is_global, impl),
+            q, (k, v), positions)
+    else:
+        out, k, v = _gqa_core(q, k, v, positions, window, is_global, impl)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+
+
+def _gqa_core(q, k, v, positions, window: int, is_global: bool, impl: str):
+    """RoPE and attention over projected (B, S, H|KV, hd) heads: the
+    output and the roped k, and v."""
+    S = q.shape[1]
     q = apply_rope(q, positions)
     k = apply_rope(k, positions)
     if impl == "blockwise":
@@ -132,13 +152,90 @@ def gqa_forward_flagged(params, x, positions, window: int, is_global: bool,
         G = q.shape[2] // k.shape[2]
         out = torch.repeat_interleave(v, G, dim=2) + 0.0 * q
     else:
-        mask = _causal_mask(S, S, x.device)
+        mask = _causal_mask(S, S, q.device)
         if window > 0 and not is_global:
-            qi = torch.arange(S, device=x.device)[:, None]
-            kj = torch.arange(S, device=x.device)[None, :]
+            qi = torch.arange(S, device=q.device)[:, None]
+            kj = torch.arange(S, device=q.device)[None, :]
             mask = mask & (kj > qi - window)
         out = _sdpa(q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+    return out, k, v
+
+
+def _local_core(core, q, kvs, positions):
+    """``core(q, *kvs, positions)`` on each rank's share, in the layout
+    DTensor gave q where the core can run in it: on each mesh dim q's
+    batch rows split (``Shard(0)``) or its heads (``Shard(2)``); any other
+    placement becomes a split of the batch rows (or a replica when the dim
+    does not divide them).  The kv tensors split their batch rows as q
+    does, and where q's heads are split, their heads too when the dim
+    divides them, else each rank takes the kv heads its q heads read (GQA
+    groups) from the whole.  The core's first output comes back a
+    DTensor in q's layout, the rest in their kv tensor's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh = q.device_mesh
+    B, H = q.shape[0], q.shape[2]
+    heads = [t.shape[2] for t in kvs if t.dim() == 4]
+    q_pl, kv_pl, kv_grad, kv3_pl, kv3_grad = [], [], [], [], []
+    rows = 1  # the mesh dims splitting the batch rows so far, multiplied
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 0:
+            rows *= n
+        if isinstance(p, Shard) and p.dim == 2:
+            q_pl.append(p)
+            split = all(h % n == 0 for h in heads)
+            kv_pl.append(Shard(2) if split else Replicate())
+            kv_grad.append(Shard(2) if split else Partial())
+            kv3_pl.append(Replicate())
+            kv3_grad.append(Partial())
+        else:
+            if not (isinstance(p, Shard) and p.dim == 0):
+                p = Shard(0) if B % (rows * n) == 0 else Replicate()
+                rows *= n if isinstance(p, Shard) else 1
+            q_pl += [p]
+            kv_pl += [p]
+            kv_grad += [p]
+            kv3_pl += [p]
+            kv3_grad += [p]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    _, (b0, _, h0, _) = compute_local_shape_and_global_offset(
+        q.shape, mesh, q_pl)
+    pos = positions[b0:b0 + ql.shape[0]]
+    local = []
+    for t in kvs:
+        pl, gp = (kv_pl, kv_grad) if t.dim() == 4 else (kv3_pl, kv3_grad)
+        tl = t.redistribute(mesh, pl).to_local(grad_placements=gp)
+        sliced = False
+        if t.dim() == 4 and tl.shape[2] == t.shape[2] and ql.shape[2] < H:
+            G = H // t.shape[2]  # q heads per kv head
+            lo, hi = h0 // G, (h0 + ql.shape[2] - 1) // G + 1
+            sliced = hi - lo < t.shape[2]
+            tl = tl[:, :, lo:hi]
+        local.append((tl, pl, sliced))
+    outs = [o.contiguous()
+            for o in core(ql, *[tl for tl, _, _ in local], pos)]
+    shape = tuple(q.shape[:-1]) + (outs[0].shape[-1],)  # MLA: hd < q's
+    wrapped = [DTensor.from_local(outs[0], mesh, q_pl, run_check=False,
+                                  shape=shape, stride=_strides(shape))]
+    for o, t, (_, pl, sliced) in zip(outs[1:], kvs, local):
+        # a slice of the kv heads is no whole tensor: not returned (only
+        # a prefill's cache reads these)
+        wrapped.append(None if sliced else DTensor.from_local(
+            o, mesh, pl, run_check=False, shape=t.shape,
+            stride=_strides(t.shape)))
+    return tuple(wrapped)
+
+
+def _strides(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
 
 
 def gqa_decode_flagged(params, x, cache_k, cache_v, pos, window: int,
@@ -189,30 +286,41 @@ def mla_init(gen, cfg, dtype, device, lead: tuple = ()):
 
 def mla_forward(params, x, positions, cfg):
     """Training/prefill MLA; returns compressed cache (c_kv, k_rope)."""
-    hd, rd = cfg.head_dim, cfg.rope_dim
-    B, S, _ = x.shape
     q = torch.einsum("bsd,dq->bsq", x, params["wdq"])
     q = torch.einsum("bsq,qhk->bshk", q, params["wuq"])
-    q_nope, q_rope = q[..., :hd], q[..., hd:]
-    q_rope = apply_rope(q_rope, positions)
-
     c_kv = torch.einsum("bsd,dc->bsc", x, params["wdkv"])  # (B,S,kv_lora)
-    k_rope = apply_rope(
-        torch.einsum("bsd,dr->bsr", x, params["wkr"])[:, :, None, :],
-        positions)[:, :, 0]  # (B,S,rd) shared across heads
+    kr = torch.einsum("bsd,dr->bsr", x, params["wkr"])
     k_nope = torch.einsum("bsc,chk->bshk", c_kv, params["wuk"])
     v = torch.einsum("bsc,chk->bshk", c_kv, params["wuv"])
+    hd = cfg.head_dim
+    if shd.is_dtensor(q):
+        out, _, _, k_rope = _local_core(
+            lambda q_, kn, v_, kr_, pos: _mla_core(q_, kn, v_, kr_, pos, hd),
+            q, (k_nope, v, kr), positions)
+    else:
+        out, _, _, k_rope = _mla_core(q, k_nope, v, kr, positions, hd)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (c_kv, k_rope)
 
+
+def _mla_core(q, k_nope, v, kr, positions, hd: int):
+    """MLA's attention over projected heads: q (B,S,H,hd+rd), k_nope and
+    v (B,S,H,hd), the shared rope key kr (B,S,rd) before RoPE.  Returns
+    the output, k_nope, v and the roped key."""
+    rd = kr.shape[-1]
+    S = q.shape[1]
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions)
+    k_rope = apply_rope(kr[:, :, None, :], positions)[:, :, 0]
     scale = 1.0 / np.sqrt(hd + rd)
     scores = (
         torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
         + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)
     ).float() * scale
-    mask = _causal_mask(S, S, x.device)
+    mask = _causal_mask(S, S, q.device)
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqs,bshk->bqhk", w, v)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (c_kv, k_rope)
+    return out, k_nope, v, k_rope
 
 
 def mla_decode(params, x, cache_c, cache_kr, pos, cfg):

@@ -28,7 +28,8 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import carry_tree
 from repro_torch.models.gnn import so3
 from repro_torch.models.gnn.common import (
-    cross_entropy_nodes, dense_init, edge_endpoints, generator, seg_sum,
+    cross_entropy_nodes, dense_init, edge_endpoints, generator, graph_sum,
+    node_rows, seg_sum,
 )
 from repro_torch.models.layers import normal
 
@@ -189,12 +190,12 @@ def _sel_layout(groups, n_coeff):
     return sel, rgroups
 
 
-def _edge_pass(p, xn, pos, ech, cfg: EquiformerConfig, rot: dict):
+def _edge_pass(p, xn, pos, ech, cfg: EquiformerConfig, rot: dict, n: int):
     """One chunk of edges: rotate both endpoints into the edge frame, the
     SO(2) conv, the soft-capped attention weights, the message rotated
-    back; returns its sums into the destinations (agg, wsum)."""
+    back; returns its sums into the ``n`` destinations (agg, wsum).
+    ``xn`` and ``pos`` are the whole node tables (``node_rows``)."""
     C, L, H = cfg.channels, cfg.l_max, cfg.n_heads
-    n = pos.shape[0]
     groups = rot["groups"]
     src, dst, valid = edge_endpoints(ech)
     vec = pos.index_select(0, dst) - pos.index_select(0, src)
@@ -284,14 +285,15 @@ def forward(params, graph, cfg: EquiformerConfig):
         edges = torch.cat([edges, edges.new_full((pad, 2), -1)])
     edges_c = edges.reshape(chunks, -1, 2)
 
+    pos_all = node_rows(pos)
     for p in params["layers"]:
         # cast BEFORE the edge gathers: the (Ec, 49, C) gather outputs are
         # the edge pass's largest tensors
-        xn = _equiv_norm(x, L).to(edt)
+        xn = node_rows(_equiv_norm(x, L).to(edt))
         agg = x.new_zeros((n, cfg.n_coeff, C))
         wsum = x.new_zeros((n, C))
         for ech in edges_c:
-            a, w = _edge_pass(p, xn, pos, ech, cfg, rot)
+            a, w = _edge_pass(p, xn, pos_all, ech, cfg, rot, n)
             agg = agg + a
             wsum = wsum + w
         attn_out = agg / torch.clamp(wsum[:, None, :], min=1e-9)
@@ -318,7 +320,7 @@ def loss_fn(params, graph, cfg: EquiformerConfig):
     if cfg.n_out == 1:
         seg = graph.get("batch_seg")
         if seg is not None:
-            e = seg_sum(out[:, 0], seg.long(), graph["energy"].shape[0])
+            e = graph_sum(out[:, 0], seg.long(), graph["energy"].shape[0])
             return torch.mean((e - graph["energy"]) ** 2)
         return torch.mean((out.sum() - graph["energy"]) ** 2)
     return cross_entropy_nodes(out, graph["labels"], graph["train_mask"])

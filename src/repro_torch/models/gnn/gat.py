@@ -12,8 +12,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import carry_tree
 from repro_torch.models.gnn.common import (
-    cross_entropy_nodes, dense_init, edge_endpoints, generator, seg_softmax,
-    seg_sum,
+    cross_entropy_nodes, dense_init, edge_endpoints, generator, node_rows,
+    seg_softmax, seg_sum,
 )
 from repro_torch.models.layers import normal
 
@@ -65,10 +65,10 @@ def layer_apply(p, x, edges, num_nodes: int, heads: int, d_out: int,
     h = (x @ p["w"]).reshape(-1, heads, d_out)  # (N, H, F)
     e_src = (h * p["a_src"][None]).sum(-1)  # (N, H)
     e_dst = (h * p["a_dst"][None]).sum(-1)
-    scores = F.leaky_relu(e_src.index_select(0, src)
-                          + e_dst.index_select(0, dst), 0.2)  # (E, H)
-    alpha = seg_softmax(scores, dst, num_nodes, valid[:, None])
-    msg = h.index_select(0, src) * alpha[..., None]  # (E, H, F)
+    scores = F.leaky_relu(node_rows(e_src).index_select(0, src)
+                          + node_rows(e_dst).index_select(0, dst), 0.2)
+    alpha = seg_softmax(scores, dst, num_nodes, valid[:, None])  # (E, H)
+    msg = node_rows(h).index_select(0, src) * alpha[..., None]  # (E, H, F)
     out = seg_sum(torch.where(valid[:, None, None], msg, 0.0), dst,
                   num_nodes)
     return out.reshape(-1, heads * d_out) if concat else out.mean(dim=1)

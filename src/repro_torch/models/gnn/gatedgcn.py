@@ -17,7 +17,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import carry_tree
 from repro_torch.models.gnn.common import (
-    cross_entropy_nodes, dense_init, edge_endpoints, generator, seg_sum,
+    cross_entropy_nodes, dense_init, edge_endpoints, generator, node_rows,
+    seg_sum,
 )
 
 
@@ -72,7 +73,8 @@ def forward(params, graph, cfg: GatedGCNConfig):
     e = e @ params["embed_e"]
 
     for p in params["layers"]:
-        h_src, h_dst = h.index_select(0, src), h.index_select(0, dst)
+        hf = node_rows(h)
+        h_src, h_dst = hf.index_select(0, src), hf.index_select(0, dst)
         e_new = h_src @ p["A"] + h_dst @ p["B"] + e @ p["C"]
         gate = torch.sigmoid(e_new)
         gate = torch.where(valid[:, None], gate, 0.0)

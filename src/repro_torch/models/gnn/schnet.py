@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import carry_tree
 from repro_torch.models.gnn.common import (
-    dense_init, edge_endpoints, generator, seg_sum,
+    dense_init, edge_endpoints, generator, graph_sum, node_rows, seg_sum,
 )
 from repro_torch.models.layers import normal
 
@@ -78,8 +78,10 @@ def forward(params, graph, cfg: SchNetConfig):
     n = pos.shape[0]
     h = params["embed"].index_select(0, graph["species"].long())
 
+    pos_all = node_rows(pos)
     d_ij = torch.linalg.vector_norm(
-        pos.index_select(0, src) - pos.index_select(0, dst) + 1e-12, dim=-1)
+        pos_all.index_select(0, src) - pos_all.index_select(0, dst) + 1e-12,
+        dim=-1)
     rbf = rbf_expand(d_ij, cfg)
     # smooth cutoff envelope
     env = 0.5 * (torch.cos(np.pi * torch.clamp(d_ij / cfg.cutoff, 0, 1))
@@ -89,7 +91,7 @@ def forward(params, graph, cfg: SchNetConfig):
     for blk in params["blocks"]:
         W = _shifted_softplus(rbf @ blk["filter1"]) @ blk["filter2"]  # (E, d)
         W = W * env[:, None]
-        m = (h @ blk["in2f"]).index_select(0, src) * W
+        m = node_rows(h @ blk["in2f"]).index_select(0, src) * W
         agg = seg_sum(m, dst, n)
         h = h + _shifted_softplus(agg @ blk["f2out"])
 
@@ -99,7 +101,7 @@ def forward(params, graph, cfg: SchNetConfig):
     seg = graph.get("batch_seg")
     if seg is None:
         return atom_out.sum()
-    return seg_sum(atom_out[:, 0], seg.long(), graph["energy"].shape[0])
+    return graph_sum(atom_out[:, 0], seg.long(), graph["energy"].shape[0])
 
 
 def loss_fn(params, graph, cfg: SchNetConfig):

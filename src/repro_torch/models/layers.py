@@ -113,7 +113,7 @@ def cross_entropy_chunked(logits_fn, x_final, embed, targets, mask,
         cut = slice(i * C, (i + 1) * C)
         logits = logits_fn(x_final[:, cut], embed).float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, targets[:, cut, None].long())[..., 0]
+        gold = logits.gather(-1, targets[:, cut].unsqueeze(-1).long())[..., 0]
         ms = mask[:, cut]
         tot = tot + ((lse - gold) * ms).sum()
         cnt = cnt + ms.sum()

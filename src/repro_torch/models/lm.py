@@ -26,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import carry_tree, to_numpy, to_torch
+from repro_torch.distributed import sharded as shd
+from repro_torch.distributed.sharded import match_placements
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
@@ -195,6 +197,7 @@ def layer_views(stacked) -> list:
 
 def _block(params_l, x, positions, cfg: LMConfig, is_global: bool,
            dense_ffn: bool):
+    params_l = shd.gather_dp(params_l)  # sharded: FSDP's per-layer gather
     h = apply_norm(cfg.norm, x, params_l.get("ln1"))
     if cfg.attn == "mla":
         a, kv = attn_lib.mla_forward(params_l["attn"], h, positions, cfg)
@@ -213,7 +216,17 @@ def _block(params_l, x, positions, cfg: LMConfig, is_global: bool,
 
 
 def _embed(params, tokens, cfg: LMConfig):
-    x = params["embed"][tokens.long()].float() * np.sqrt(cfg.d_model)
+    embed = params["embed"]
+    if shd.is_dtensor(embed):
+        # the table whole on every rank (the loss gathers it too): a
+        # lookup in a vocabulary split over 'model' leaves a masked
+        # partial sum, and an indexing's backward an index_put, that
+        # some PyTorch releases fail to redistribute
+        rows = torch.nn.functional.embedding(tokens.long(),
+                                             shd.replicate(embed))
+    else:
+        rows = embed[tokens.long()]
+    x = rows.float() * np.sqrt(cfg.d_model)
     return x.to(cfg.torch_dtype)
 
 
@@ -257,8 +270,14 @@ def logits_fn(x, embed):
 
 def loss_fn(params, batch, cfg: LMConfig):
     x, aux = forward(params, batch["tokens"], cfg)
+    embed = params["embed"]
+    if shd.is_dtensor(x):
+        # sharded: each rank's rows against the whole vocabulary, so the
+        # softmax and the gold logit are local (the table is gathered
+        # once a step; its gradient reduce-scattered)
+        x, embed = shd.batch_rows(x), shd.replicate(embed)
     ce = cross_entropy_chunked(
-        logits_fn, x, params["embed"], batch["targets"], batch["mask"],
+        logits_fn, x, embed, batch["targets"], batch["mask"],
         n_chunks=cfg.loss_chunks,
     )
     return ce + cfg.aux_weight * aux, ce
@@ -273,7 +292,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig = AdamWConfig()):
         with torch.enable_grad():
             live = [p.detach().requires_grad_() for p in leaves]
             loss, ce = loss_fn(tree_unflatten(params, live), batch, cfg)
-            grads = torch.autograd.grad(loss, live)
+            grads = match_placements(torch.autograd.grad(loss, live), leaves)
         params, opt_state, gnorm = adamw_update(
             tree_unflatten(params, grads), opt_state, params, opt_cfg)
         metrics = {"loss": loss.detach(), "ce": ce.detach(),

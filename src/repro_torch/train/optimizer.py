@@ -27,8 +27,8 @@ class AdamWConfig:
 
 
 def init_opt_state(params):
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):  # a DTensor parameter's moments are DTensors like it
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = tree_leaves(params)[0].device
     return {

@@ -51,3 +51,15 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, the structure kept;
+    a path holds dict keys and sequence indices (``tree_items``')."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], path + (k,))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, t, path + (i,))
+                          for i, t in enumerate(tree))
+    return fn(path, tree)

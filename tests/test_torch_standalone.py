@@ -55,4 +55,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_reference():
             "repro_torch.launch.train", "repro_torch.launch.cells",
             "repro_torch.data.graphs", "repro_torch.models.gnn.equiformer",
             "repro_torch.models.gnn.so3", "examples/train_gnn_torch.py",
-            "examples/quickstart_torch.py"} <= set(seen["modules"])
+            "examples/quickstart_torch.py", "repro_torch.launch.mesh",
+            "repro_torch.launch.shardings", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dry_run", "repro_torch.distributed.sharded",
+            "repro_torch.testing.sharded_steps", "examples/train_lm_torch.py",
+            "examples/serve_queries_torch.py"} <= set(seen["modules"])
